@@ -1,12 +1,15 @@
 """Reprojection factors: pinhole/stereo at a keyframe state and through the
 GP-interpolated pose of an asynchronous camera.
 
-Port of the slice of `amcslam_tpu/factors/reprojection.py` that the
-table-driven local GP-BA runs: the projections and their Jacobians
-(`:31-62`), `_se3_deriv`, `stereo_residual[_jac]` (`:98-117`), the pair and
-interpolation packs (`gp_pair_pack` `:254`, `gp_interp_pack` `:348`) and the
-interp-pack factors (`:371-419`). The per-edge/packed GP variants
-(`:125-330`) are not ported yet.
+Port of `amcslam_tpu/factors/reprojection.py` as the table-driven local
+GP-BA and the per-frame pose solver run it: the projections and their
+Jacobians (`:31-62`), `_se3_deriv`, `mono_residual[_jac]` and
+`stereo_residual[_jac]` (`:70-117`), the per-edge GP factors
+(`_gp_vertex_chains`, `mono_gp_residual[_jac]`, `stereo_gp_residual_jac`,
+`:125-233`), the pair and interpolation packs (`gp_pair_pack` `:254`,
+`gp_interp_pack` `:348`) and the interp-pack factors (`:371-419`). The
+packed variants (`:267-330`), which serve only the reference's segment-sum
+fallback of `make_ba_problem`, are not ported.
 
 Every function is batched over leading dimensions (the reference's `vmap`
 written out). Conventions: state pose Twb (body->world), world landmark Xw,
@@ -67,6 +70,29 @@ def _se3_deriv(Rcb: torch.Tensor, Xb: torch.Tensor) -> torch.Tensor:
     return torch.cat([-Rcb, Rcb @ lie.hat(Xb)], -1)
 
 
+def mono_residual(Twb, Tbc, K, Xw, obs):
+    """err = obs - pi(Tcb * Twb^-1 * Xw)  (EdgeMono/EdgeMonoOnlyPose)."""
+    Xb = lie.transform_point(lie.se3_inv(Twb), Xw)
+    Xc = lie.transform_point(lie.se3_inv(Tbc), Xb)
+    return obs - project_pinhole(K, Xc), Xc
+
+
+def mono_residual_jac(Twb, Tbc, K, Xw, obs):
+    """(r, J_pose (...,2,12), J_point (...,2,3), Xc); the velocity block of
+    J_pose is zero."""
+    Tcb = lie.se3_inv(Tbc)
+    Rcb = Tcb[..., :3, :3]
+    Xb = lie.transform_point(lie.se3_inv(Twb), Xw)
+    Xc = lie.transform_point(Tcb, Xb)
+    r = obs - project_pinhole(K, Xc)
+    pj = project_jac_pinhole(K, Xc)
+    J_pose6 = -(pj @ _se3_deriv(Rcb, Xb))
+    J_pose = torch.cat([J_pose6, torch.zeros_like(J_pose6)], -1)
+    Rbw = Twb[..., :3, :3].transpose(-1, -2)
+    J_point = -((pj @ Rcb) @ Rbw)
+    return r, J_pose, J_point, Xc
+
+
 def stereo_residual(Twb, Tbc, K, bf, Xw, obs):
     Xb = lie.transform_point(lie.se3_inv(Twb), Xw)
     Xc = lie.transform_point(lie.se3_inv(Tbc), Xb)
@@ -86,6 +112,104 @@ def stereo_residual_jac(Twb, Tbc, K, bf, Xw, obs):
     Rbw = Twb[..., :3, :3].transpose(-1, -2)
     J_point = -((pj @ Rcb) @ Rbw)
     return r, J_pose, J_point, Xc
+
+
+# ---------------------------------------------------------------------------
+# Per-edge GP-interpolated reprojection (async cameras)
+# ---------------------------------------------------------------------------
+# The endpoint states (T1, v1, T2, v2) may be single (4,4)/(6,) tensors while
+# t, Xw and obs carry an edge batch: the pair-level chain is then computed
+# once and broadcast, which is what the reference's vmap over edges with the
+# endpoints closed over computes.
+
+
+def _cat(xs, dim: int) -> torch.Tensor:
+    """torch.cat over tensors whose batch dimensions broadcast."""
+    shape = torch.broadcast_shapes(*(x.shape[:-2] for x in xs))
+    return torch.cat([x.expand(*shape, *x.shape[-2:]) for x in xs], dim)
+
+
+def _gp_vertex_chains(dT, xi12, v2, t1, t2, t):
+    """The shared Jacobian chain blocks of the GP-interpolated factors:
+    (Jr_dxi, Pt1, At1, Ad_dT, JinT1, JinV1, JinT2, JinV2), the maps from the
+    endpoint-state perturbations to the perturbation of the interpolated
+    local pose increment (G2oTypes.cc:177-223)."""
+    dxi = lie.log_se3(dT)
+    Ad_dT = lie.adj_se3(lie.exp_se3(-dxi))
+    Jr_dxi = lie.right_jacobian_pose3(dxi)
+    Jr_inv_xi12 = lie.right_jacobian_pose3_inv(xi12)
+    ad_v2 = lie.se3_ad(v2)
+    Ad_T12_inv = lie.adj_se3(lie.se3_inv(lie.exp_se3(xi12)))
+
+    top_T1 = -(Jr_inv_xi12 @ Ad_T12_inv)
+    z6 = torch.zeros_like(top_T1)
+    eye6 = torch.eye(6, dtype=dT.dtype, device=dT.device)
+    JinT1 = _cat([top_T1, -0.5 * (ad_v2 @ top_T1)], -2)  # (..., 12, 6)
+    JinV1 = _cat([z6, eye6], -2)
+    JinT2 = _cat([Jr_inv_xi12, -0.5 * (ad_v2 @ Jr_inv_xi12)], -2)
+    JinV2 = _cat([z6, Jr_inv_xi12], -2)
+
+    a11, a12, p11, p12 = (gp._s(c) for c in gp.interp_coeffs(t1, t2, t))
+    At1 = _cat([a11 * eye6, a12 * eye6], -1)
+    Pt1 = _cat([p11 * eye6, p12 * eye6], -1)
+    return Jr_dxi, Pt1, At1, Ad_dT, JinT1, JinV1, JinT2, JinV2
+
+
+def _gp_pose_jacs(J1cam, dT, xi12, v2, t1, t2, t):
+    """(J1, J2) (..., m, 12) of a GP edge from its camera chain J1cam."""
+    Jr_dxi, Pt1, At1, Ad_dT, JinT1, JinV1, JinT2, JinV2 = _gp_vertex_chains(
+        dT, xi12, v2, t1, t2, t)
+    JrP = Jr_dxi @ Pt1  # (..., 6, 12)
+    J1_T = J1cam @ (JrP @ JinT1 + Ad_dT)
+    J1_V = J1cam @ ((Jr_dxi @ At1) @ JinV1)
+    Jj1 = J1cam @ JrP
+    return _cat([J1_T, J1_V], -1), _cat([Jj1 @ JinT2, Jj1 @ JinV2], -1)
+
+
+def _gp_query(T1, v1, t1, T2, v2, t2, t):
+    eye = torch.eye(6, dtype=T1.dtype, device=T1.device)
+    return gp.query_pose_aux(T1, T2, v1, v2, t1, t2, t, eye, eye)
+
+
+def mono_gp_residual(T1, v1, t1, T2, v2, t2, t, Tbc, K, Xw, obs):
+    """err = obs - pi(Tcb * QueryPose(...)^-1 * Xw) (EdgeMonoGP*::computeError)."""
+    Twb, _ = _gp_query(T1, v1, t1, T2, v2, t2, t)
+    Xb = lie.transform_point(lie.se3_inv(Twb), Xw)
+    Xc = lie.transform_point(lie.se3_inv(Tbc), Xb)
+    return obs - project_pinhole(K, Xc), Xc
+
+
+def mono_gp_residual_jac(T1, v1, t1, T2, v2, t2, t, Tbc, K, Xw, obs):
+    """GP-interpolated mono reprojection with analytic Jacobians:
+    (r, J1 (...,2,12), J2 (...,2,12), J_point (...,2,3), J_ext (...,2,6), Xc)
+    wrt both endpoint pose-vel states, the landmark and the extrinsic."""
+    Twb, (_, _, dT, xi12) = _gp_query(T1, v1, t1, T2, v2, t2, t)
+    Tcb = lie.se3_inv(Tbc)
+    Rcb = Tcb[..., :3, :3]
+    Xb = lie.transform_point(lie.se3_inv(Twb), Xw)
+    Xc = lie.transform_point(Tcb, Xb)
+    r = obs - project_pinhole(K, Xc)
+    pj = project_jac_pinhole(K, Xc)
+    J1cam = -(pj @ _se3_deriv(Rcb, Xb))  # d r / d (interpolated pose)
+    J1, J2 = _gp_pose_jacs(J1cam, dT, xi12, v2, t1, t2, t)
+    J_point = -((pj @ Rcb) @ Twb[..., :3, :3].transpose(-1, -2))
+    return r, J1, J2, J_point, _ext_jac(pj, Xc), Xc
+
+
+def stereo_gp_residual_jac(T1, v1, t1, T2, v2, t2, t, Tbc, K, bf, Xw, obs):
+    """GP-interpolated stereo reprojection (EdgeStereoGP):
+    (r, J1 (...,3,12), J2 (...,3,12), J_point (...,3,3), Xc)."""
+    Twb, (_, _, dT, xi12) = _gp_query(T1, v1, t1, T2, v2, t2, t)
+    Tcb = lie.se3_inv(Tbc)
+    Rcb = Tcb[..., :3, :3]
+    Xb = lie.transform_point(lie.se3_inv(Twb), Xw)
+    Xc = lie.transform_point(Tcb, Xb)
+    r = obs - project_stereo(K, bf, Xc)
+    pj = project_jac_stereo(K, bf, Xc)
+    J1cam = -(pj @ _se3_deriv(Rcb, Xb))
+    J1, J2 = _gp_pose_jacs(J1cam, dT, xi12, v2, t1, t2, t)
+    J_point = -((pj @ Rcb) @ Twb[..., :3, :3].transpose(-1, -2))
+    return r, J1, J2, J_point, Xc
 
 
 # ---------------------------------------------------------------------------

@@ -1,8 +1,9 @@
 """Windowed local GP bundle adjustment with landmark Schur complement.
 
 Port of the table-driven path of `amcslam_tpu/solver/ba.py` (`:52-849`,
-`:1363-1460`, host-side tables `:1624-1862`): `Optimizer::LocalGPBA` on the
-g2o-exact LM loop (solver/lm.py), with
+`:1363-1621`, host-side tables `:1624-1862`): `Optimizer::LocalGPBA` and
+`GlobalBundleAdjustemnt` on the g2o-exact LM loop (solver/lm.py), and their
+abort-segmented variants, with
 
   graph = { a window of pose-vel keyframes (anchors fixed), per-async-camera
             extrinsic vertices (fixed unless refined), landmarks
@@ -49,7 +50,7 @@ from ..factors import gp_prior, priors, reprojection
 from ..ops import gp, interp_chain, lie
 from ..utils.shapes import bucket_pow2
 from . import robust
-from .lm import LMProblem, lm_optimize
+from .lm import LMCarry, LMProblem, LMStats, lm_init, lm_optimize, lm_segment
 
 CHI2_MONO = 5.991
 CHI2_STEREO = 7.815
@@ -594,12 +595,7 @@ def local_gp_ba(
     new_state, _ = lm_optimize(problem, state, 10, lambda_init=lambda_init)
 
     if b_extrinsic:
-        if ext_obs_count is None:
-            # mg_cam == n_ext (the stereo camera) counts for no vertex
-            counts = torch.bincount(data.mg_cam[data.mg_valid],
-                                    minlength=data.n_ext + 1)[: data.n_ext]
-        else:
-            counts = ext_obs_count
+        counts = _ext_counts(data) if ext_obs_count is None else ext_obs_count
         problem2 = make_ba_problem(data, *lvl, huber_on=True,
                                    ext_active=counts >= ext_min_obs)
         new_state, _ = lm_optimize(problem2, new_state, 4 if b_large else 10,
@@ -646,6 +642,108 @@ def _lba_finalize(data: LocalBAData, state: BAState, new_state: BAState,
     return LocalBAResult(state=out_state, ok=ok, err_initial=err_initial,
                          err_final=err_final, erase_m=erase_m,
                          erase_sg=erase_sg, erase_st=erase_st)
+
+
+def global_ba(data: LocalBAData, state: BAState, num_iterations: int = 10):
+    """Full-map bundle adjustment (`Optimizer::GlobalBundleAdjustemnt` ->
+    BundleAdjustment, Optimizer.cc:53-367): the LocalGPBA edges over every
+    keyframe (only the first fixed; robustify the GP chain with
+    data.gp_huber), lambda_0 = 1e-5. Returns (state, LMStats); there is no
+    divergence guard, the caller stages the result."""
+    problem = make_ba_problem(data, data.mg_valid, data.sg_valid, data.st_valid,
+                              huber_on=True)
+    return lm_optimize(problem, state, num_iterations, lambda_init=1e-5)
+
+
+# ----------------------------------------------------------------------
+# Interruptible schedules: host-segmented LM with abort checks between
+# segments, the counterpart of g2o's setForceStopFlag (&mbAbortBA for
+# LocalGPBA, &mbStopGBA for the detached global BA). The full LM carry is
+# kept between segments, so a run that is not aborted is bit-identical to
+# the monolithic one.
+# ----------------------------------------------------------------------
+
+
+def _run_segments(seg_fn, carry: LMCarry, total_iters: int, seg_iters: int,
+                  should_abort) -> tuple[LMCarry, bool]:
+    """Drive `seg_fn(carry, it_end)` to `total_iters` in `seg_iters` chunks,
+    polling `should_abort()` (a host callable) between chunks. Returns
+    (carry, aborted)."""
+    it = 0
+    aborted = False
+    while it < total_iters:
+        it = min(it + max(1, seg_iters), total_iters)
+        carry = seg_fn(carry, it)
+        if it >= total_iters or carry.term:
+            break
+        if should_abort is not None and should_abort():
+            aborted = True
+            break
+    return carry, aborted
+
+
+def _ext_counts(data: LocalBAData):
+    """Valid mono-GP observations per extrinsic vertex (mg_cam == n_ext, the
+    stereo camera, counts for none)."""
+    return torch.bincount(data.mg_cam[data.mg_valid], minlength=data.n_ext + 1)[: data.n_ext]
+
+
+def local_gp_ba_interruptible(
+    data: LocalBAData,
+    state: BAState,
+    b_large: bool = False,
+    b_extrinsic: bool = False,
+    ext_obs_count=None,
+    ext_min_obs: int = 50,
+    should_abort=None,
+    seg_iters: int = 4,
+):
+    """local_gp_ba with the mbAbortBA force stop (LocalMapping.cc:131/215: a
+    new keyframe interrupts the running LocalGPBA at the next iteration
+    boundary, and the partial iterate is still written back). Returns
+    (LocalBAResult, aborted). Bit-identical to local_gp_ba when no abort
+    fires; an abort skips the rest of the schedule, the extrinsic phase
+    included (bDoMore = false, LocalMapping.cc:148)."""
+    lambda_init = 1e-2 if b_large else 1.0
+    lvl = (data.mg_valid, data.sg_valid, data.st_valid)
+    problem = make_ba_problem(data, *lvl, huber_on=True)
+    carry = lm_init(problem, state)
+    carry, aborted = _run_segments(
+        lambda c, e: lm_segment(problem, c, e, lambda_init=lambda_init),
+        carry, 10, seg_iters, should_abort)
+    new_state = carry.state
+
+    if b_extrinsic and not aborted:
+        counts = _ext_counts(data) if ext_obs_count is None else ext_obs_count
+        problem2 = make_ba_problem(data, *lvl, huber_on=True,
+                                   ext_active=counts >= ext_min_obs)
+        carry2, aborted = _run_segments(
+            lambda c, e: lm_segment(problem2, c, e, lambda_init=lambda_init),
+            lm_init(problem2, new_state), 4 if b_large else 10, seg_iters, should_abort)
+        new_state = carry2.state
+
+    return _lba_finalize(data, state, new_state, carry.chi0, b_large), aborted
+
+
+def global_ba_interruptible(
+    data: LocalBAData,
+    state: BAState,
+    num_iterations: int = 10,
+    should_abort=None,
+    seg_iters: int = 2,
+):
+    """global_ba with the detached-GBA stop flag (mbStopGBA,
+    LoopClosing.cc:811-835): polls `should_abort` between LM segments.
+    Returns (state, LMStats, aborted); the caller discards an aborted run's
+    result (LoopClosing.cc:1249)."""
+    problem = make_ba_problem(data, data.mg_valid, data.sg_valid, data.st_valid,
+                              huber_on=True)
+    carry, aborted = _run_segments(
+        lambda c, e: lm_segment(problem, c, e, lambda_init=1e-5),
+        lm_init(problem, state), num_iterations, seg_iters, should_abort)
+    stats = LMStats(chi2=carry.chi, iterations=carry.it, lam=carry.lam,
+                    initial_chi2=carry.chi0)
+    return carry.state, stats, aborted
 
 
 # ----------------------------------------------------------------------

@@ -24,6 +24,11 @@ A problem is the reference's five-closure protocol:
   max_abs_diag(lin)      -> 0-d tensor (active slots only)
   solve(lin, lam)        -> (dx, dot_xx, dot_xb)
   retract(state, dx)     -> state
+
+`lm_optimize_batched` runs B independent problems of one shape together,
+the counterpart of the reference's `jax.vmap` over `lm_optimize`: the same
+closures, with a leading member dimension on the state, on every returned
+scalar and on lambda.
 """
 
 from __future__ import annotations
@@ -31,6 +36,11 @@ from __future__ import annotations
 from typing import Any, Callable, NamedTuple
 
 import torch
+
+
+def _read(t: torch.Tensor) -> list:
+    """The LM loop's one host read per trial (a device sync on CUDA)."""
+    return t.tolist()
 
 
 class LMProblem(NamedTuple):
@@ -120,8 +130,8 @@ def lm_segment(
             chi_t = torch.where(good_t, temp_chi, chi)
             raul_t = (ini_chi - chi_t) * 1e3 < ini_chi
             # the one host read of the trial
-            rho_h, good, raul_bad = torch.stack(
-                [rho, good_t.to(dtype), raul_t.to(dtype)]).tolist()
+            rho_h, good, raul_bad = _read(torch.stack(
+                [rho, good_t.to(dtype), raul_t.to(dtype)]))
             good = bool(good)
             if good:
                 state, chi = new_state, temp_chi
@@ -152,3 +162,97 @@ def lm_optimize(
                    lambda_init=lambda_init, tau=tau, max_trials=max_trials)
     return c.state, LMStats(chi2=c.chi, iterations=c.it, lam=c.lam,
                             initial_chi2=c.chi0)
+
+
+class LMBatchStats(NamedTuple):
+    chi2: torch.Tensor          # (B,) final robust chi2
+    iterations: torch.Tensor    # (B,) int64 outer iterations executed
+    lam: torch.Tensor           # (B,) final lambda
+    initial_chi2: torch.Tensor  # (B,)
+
+
+def _select(mask: torch.Tensor, a, b):
+    """Per member: b where mask else a, over a tensor or a tuple of tensors
+    with the member dimension first."""
+    if isinstance(a, torch.Tensor):
+        return torch.where(mask.reshape(mask.shape + (1,) * (a.ndim - 1)), b, a)
+    return type(a)(*(_select(mask, x, y) for x, y in zip(a, b)))
+
+
+def lm_optimize_batched(
+    problem: LMProblem,
+    state0: Any,
+    num_iterations: int,
+    lambda_init: float = 0.0,
+    tau: float = 1e-5,
+    max_trials: int = 10,
+):
+    """`lm_optimize` for B members at once; returns (state, LMBatchStats).
+
+    The closures work on the whole batch: chi2 and max_abs_diag return (B,),
+    solve takes lam (B,) and returns (B,) dot products. Every member follows
+    its own control law, as `jax.vmap` of the reference's while loops does:
+    its own lambda_0 from its own max|diag H|, its own trial loop (ended by
+    rho > 0 or max_trials), its own Raul counter and termination. A member
+    that has stopped keeps its carry while the others go on; its results
+    are those of its own `lm_optimize` run (to the last bits of vectorized
+    transcendental functions). The loop control costs one host read per
+    trial round for the whole batch.
+    """
+    chi = problem.chi2(state0)
+    dtype, device = chi.dtype, chi.device
+    B = chi.shape[0]
+
+    def full(x):
+        return torch.full((B,), x, dtype=dtype, device=device)
+
+    big = torch.finfo(dtype).max
+    zero_i = torch.zeros(B, dtype=torch.int64, device=device)
+    state, chi0 = state0, chi
+    lam, ni, nbad, it = full(0.0), full(2.0), zero_i, zero_i
+    term = torch.zeros(B, dtype=torch.bool, device=device)
+    running = ~term
+    any_running = num_iterations > 0
+
+    while any_running:
+        ini_chi = chi
+        lin = problem.linearize(state)
+        first = running & (it == 0)
+        lam0 = (full(lambda_init) if lambda_init > 0
+                else tau * problem.max_abs_diag(lin))
+        lam = torch.where(first, lam0, lam)
+        ni = torch.where(first, full(2.0), ni)
+        nbad = torch.where(first, zero_i, nbad)
+
+        trying = running
+        qmax = zero_i
+        any_trying = True
+        while any_trying:
+            dx, dot_xx, dot_xb = problem.solve(lin, lam)
+            new_state = problem.retract(state, dx)
+            temp_chi = problem.chi2(new_state)
+            temp_chi = torch.where(torch.isfinite(temp_chi), temp_chi, full(big))
+            scale = lam * dot_xx + dot_xb + 1e-3
+            rho = (chi - temp_chi) / scale
+            good = (rho > 0) & torch.isfinite(temp_chi) & (temp_chi < big)
+            alpha = 1.0 - (2.0 * rho - 1.0) ** 3
+            scale_factor = torch.clamp(torch.clamp(alpha, max=2.0 / 3.0), min=1.0 / 3.0)
+            accept = trying & good
+            state = _select(accept, state, new_state)
+            chi = torch.where(accept, temp_chi, chi)
+            lam = torch.where(trying, torch.where(good, lam * scale_factor, lam * ni), lam)
+            ni = torch.where(trying, torch.where(good, full(2.0), ni * 2.0), ni)
+            qmax = qmax + trying.to(torch.int64)
+            again = trying & (rho < 0) & (qmax < max_trials)
+            # members whose trial loop ended close their outer iteration
+            ended = trying & ~again
+            raul_bad = (ini_chi - chi) * 1e3 < ini_chi
+            nbad = torch.where(ended, torch.where(raul_bad, nbad + 1, zero_i), nbad)
+            stop = (qmax == max_trials) | (rho == 0) | (nbad >= 3)
+            term = torch.where(ended, stop, term)
+            it = it + ended.to(torch.int64)
+            running = torch.where(ended, ~term & (it < num_iterations), running)
+            trying = again
+            any_trying, any_running = _read(torch.stack([trying.any(), running.any()]))
+
+    return state, LMBatchStats(chi2=chi, iterations=it, lam=lam, initial_chi2=chi0)

@@ -1,6 +1,6 @@
-"""Synthetic local-BA problems (port of the local-BA part of
+"""Synthetic pose-solve and local-BA problems (port of
 `amcslam_tpu/utils/synthetic.py`: `_np_exp_se3`, `make_rig`,
-`make_local_ba_problem`).
+`make_pose_problem`, `make_local_ba_problem`).
 
 The generator is the reference's numpy code, draw for draw from
 `np.random.RandomState(seed)`, so for the same arguments it emits the same
@@ -13,7 +13,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from ..convert import ba_from_numpy, state_from_numpy
+from ..convert import ba_from_numpy, pose_from_numpy, pose_state_from_numpy, state_from_numpy
 from ..solver.ba import build_interp_tables, make_landmark_tables, make_structure_ids
 
 
@@ -40,6 +40,121 @@ def make_rig(n_cams=3, seed=0, dtype=np.float64):
     K = np.tile(np.array([420.0, 420.0, 480.0, 300.0], dtype), (n_cams, 1))
     bf = 40.0
     return np.stack(Tbc).astype(dtype), K, bf
+
+
+def make_pose_problem_numpy(
+    n_mono=64,
+    n_stereo=48,
+    n_cams=3,
+    noise_px=0.5,
+    outlier_frac=0.0,
+    seed=0,
+):
+    """One per-frame pose-solve instance (PoseGPOptimizationFromeLastFrame)
+    as numpy arrays: (data fields, state0 fields, gt fields), keyed by the
+    PoseGPData/PoseState field names, float64. Observations come from the
+    ground-truth constant-twist trajectory; async-camera timestamps fall
+    strictly inside (t_prev, t_cur)."""
+    rng = np.random.RandomState(seed)
+    Tbc, K, bf = make_rig(n_cams, seed + 1)
+
+    t_prev, t_cur = 0.0, 0.1
+    v_true = np.array([2.0, 0.2, -0.1, 0.02, -0.03, 0.2])
+    T_prev = _np_exp_se3(rng.randn(6) * 0.2)
+    T_cur = T_prev @ _np_exp_se3(v_true * (t_cur - t_prev))
+
+    # --- async mono GP observations
+    cams = rng.randint(0, n_cams - 1, n_mono)
+    ts = rng.uniform(t_prev + 0.01, t_cur - 0.01, n_mono)
+    mg_obs = np.zeros((n_mono, 2))
+    mg_Xw = np.zeros((n_mono, 3))
+    for i in range(n_mono):
+        s = (ts[i] - t_prev) / (t_cur - t_prev)
+        Twb = T_prev @ _np_exp_se3(v_true * s * (t_cur - t_prev))
+        Twc = Twb @ Tbc[cams[i]]
+        Xc = np.array([rng.uniform(-3, 3), rng.uniform(-2, 2), rng.uniform(4, 20)])
+        Xw = Twc[:3, :3] @ Xc + Twc[:3, 3]
+        u = K[cams[i], 0] * Xc[0] / Xc[2] + K[cams[i], 2]
+        v = K[cams[i], 1] * Xc[1] / Xc[2] + K[cams[i], 3]
+        mg_obs[i] = [u + rng.randn() * noise_px, v + rng.randn() * noise_px]
+        mg_Xw[i] = Xw
+
+    # --- stereo-camera observations at t_cur
+    st_obs = np.zeros((n_stereo, 3))
+    st_Xw = np.zeros((n_stereo, 3))
+    is_stereo = rng.rand(n_stereo) < 0.7
+    Twc = T_cur @ Tbc[-1]
+    for i in range(n_stereo):
+        Xc = np.array([rng.uniform(-3, 3), rng.uniform(-2, 2), rng.uniform(4, 20)])
+        Xw = Twc[:3, :3] @ Xc + Twc[:3, 3]
+        u = K[-1, 0] * Xc[0] / Xc[2] + K[-1, 2]
+        v = K[-1, 1] * Xc[1] / Xc[2] + K[-1, 3]
+        ur = u - bf / Xc[2]
+        st_obs[i] = [
+            u + rng.randn() * noise_px,
+            v + rng.randn() * noise_px,
+            (ur + rng.randn() * noise_px) if is_stereo[i] else -1.0,
+        ]
+        st_Xw[i] = Xw
+
+    # --- outliers: corrupt a fraction of observations grossly
+    n_out_m = int(outlier_frac * n_mono)
+    if n_out_m:
+        idx = rng.choice(n_mono, n_out_m, replace=False)
+        mg_obs[idx] += rng.randn(n_out_m, 2) * 40 + 20
+    n_out_s = int(outlier_frac * n_stereo)
+    if n_out_s:
+        idx = rng.choice(n_stereo, n_out_s, replace=False)
+        st_obs[idx, :2] += rng.randn(n_out_s, 2) * 40 + 20
+
+    qc_diag = np.ones(6)
+    qi_inv = np.zeros((12, 12))
+    dt = t_cur - t_prev
+    qi_inv[:6, :6] = np.diag(12.0 / dt**3 / qc_diag)
+    qi_inv[:6, 6:] = np.diag(-6.0 / dt**2 / qc_diag)
+    qi_inv[6:, :6] = np.diag(-6.0 / dt**2 / qc_diag)
+    qi_inv[6:, 6:] = np.diag(4.0 / dt / qc_diag)
+
+    data = dict(
+        t_prev=np.asarray(t_prev),
+        t_cur=np.asarray(t_cur),
+        qi_inv=qi_inv,
+        qcinv22=np.asarray(1.0),
+        fix_prev=np.asarray(True),
+        Tbc=Tbc,
+        K=K,
+        bf=np.asarray(bf),
+        mg_obs=mg_obs,
+        mg_Xw=mg_Xw,
+        mg_t=ts,
+        mg_cam=cams.astype(np.int64),
+        mg_w=np.ones(n_mono),
+        mg_valid=np.ones(n_mono, bool),
+        mg_close=np.zeros(n_mono, bool),
+        st_obs=st_obs,
+        st_Xw=st_Xw,
+        st_w=np.ones(n_stereo),
+        st_valid=np.ones(n_stereo, bool),
+        st_is_stereo=is_stereo,
+        st_close=np.zeros(n_stereo, bool),
+    )
+    gt = dict(T=np.stack([T_prev, T_cur]), v=np.stack([v_true, v_true]))
+    # initial guess: previous state exact (fixed), current perturbed
+    xi0 = rng.randn(6) * np.array([0.05, 0.05, 0.05, 0.01, 0.01, 0.01])
+    state0 = dict(T=np.stack([T_prev, T_cur @ _np_exp_se3(xi0)]),
+                  v=np.stack([v_true, v_true + rng.randn(6) * 0.1]))
+    return data, state0, gt
+
+
+def make_pose_problem(n_mono=64, n_stereo=48, n_cams=3, noise_px=0.5,
+                      outlier_frac=0.0, seed=0, dtype=torch.float64, device="cpu"):
+    """One per-frame pose-solve instance on `device` in `dtype`:
+    (data: PoseGPData, state0: PoseState perturbed, gt: PoseState)."""
+    data_np, state0_np, gt_np = make_pose_problem_numpy(
+        n_mono=n_mono, n_stereo=n_stereo, n_cams=n_cams, noise_px=noise_px,
+        outlier_frac=outlier_frac, seed=seed)
+    data, state0 = pose_from_numpy(data_np, state0_np, device=device, dtype=dtype)
+    return data, state0, pose_state_from_numpy(gt_np, device=device, dtype=dtype)
 
 
 def _rigid_inv(T):

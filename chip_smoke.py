@@ -26,7 +26,21 @@ result line):
                the headline's 1024 combos;
   6. profile — torch.profiler over 5 LM iterations: device time and busy
                share per iteration, kernel launches per iteration, and a
-               table by kernel in build/profile/lm_iteration_profile.txt.
+               table by kernel in build/profile/lm_iteration_profile.txt;
+  7. interruptible — `local_gp_ba_interruptible` at the phase-4 problem:
+               with no abort it equals `local_gp_ba` field for field
+               (`torch.equal`, deterministic index_add_ on); an abort after
+               the first segment reports `aborted` and a finite state;
+  8. tracking — the per-frame tracking solve at the reference bench's
+               pose-only size (192 async-mono + 128 stereo-camera matches,
+               6 cameras, noise 0.5 px, 15 % gross outliers, seed 0,
+               float32): `mc_ransac` on the frame's 320 matches padded to
+               512 (23 hypotheses, 3 px, min 30), then `pose_gp_optimize`
+               with the RANSAC outlier flags, per edge and through the
+               interpolation table (the kernel); float64 card vs CPU;
+               ms per solve (median of 5 blocks of 20), kernel launches and
+               host reads per solve, and a torch.profiler table in
+               build/profile/tracking_profile.txt.
 
 The last three lines are the card's `nvidia-smi` name and power limit, the
 kernels' JSON record and the result line.
@@ -45,11 +59,21 @@ import torch
 
 from amcslam_tpu_torch import _build, convert
 from amcslam_tpu_torch.ops import interp_chain, lie
-from amcslam_tpu_torch.solver import ba
-from amcslam_tpu_torch.utils.synthetic import make_local_ba_problem_numpy
+from amcslam_tpu_torch.ransac import vel_ransac
+from amcslam_tpu_torch.solver import ba, pose_solver
+from amcslam_tpu_torch.solver import lm as tlm
+from amcslam_tpu_torch.utils.synthetic import (make_local_ba_problem_numpy,
+                                               make_pose_problem_numpy)
 
 HEADLINE = dict(n_kf=50, n_fixed=1, n_lm=5000, n_cams=6, obs_per_lm=4,
                 gpobs_per_lm=2, noise_px=0.5, seed=0)
+# bench.py:155-160 (pose-only config) plus the outliers the tracking path
+# rejects (tests/test_pose_solver.py:279-294)
+TRACKING = dict(n_mono=192, n_stereo=128, n_cams=6, noise_px=0.5, outlier_frac=0.15,
+                seed=0)
+RANSAC_HYPOTHESES = 23  # Tracking.cc:2029
+RANSAC_THRESHOLD = 3.0
+RANSAC_MIN_MATCH = 30
 KEYS = ("Twb", "Tbw", "Q")
 CHAIN_ARGS = ("T1", "v1", "T2", "v2", "t1", "t2", "t")
 
@@ -330,6 +354,291 @@ def profile(data, state0, out_dir) -> None:
          table=str(out_dir / "lm_iteration_profile.txt"))
 
 
+# ---------------------------------------------------------------------------
+# phase 7: the interruptible local BA
+# ---------------------------------------------------------------------------
+
+
+def phase_interruptible(data, state0) -> None:
+    """local_gp_ba_interruptible against local_gp_ba. index_add_ on CUDA
+    sums with atomics unless deterministic algorithms are on; with them on,
+    two runs of one op sequence are bitwise equal."""
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        mono = ba.local_gp_ba(data, state0)
+        seg, aborted = ba.local_gp_ba_interruptible(data, state0, seg_iters=4)
+        polls = []
+        cut, cut_aborted = ba.local_gp_ba_interruptible(
+            data, state0, seg_iters=4, should_abort=lambda: polls.append(1) or True)
+    finally:
+        torch.use_deterministic_algorithms(False)
+    sync()
+    if aborted:
+        raise AssertionError("local_gp_ba_interruptible aborted with no abort flag")
+    def fields(res):
+        return {**{f"state.{k}": v for k, v in res.state._asdict().items()},
+                **{k: getattr(res, k) for k in res._fields if k != "state"}}
+
+    want, got = fields(mono), fields(seg)
+    differ = [k for k in want if not torch.equal(want[k], got[k])]
+    if differ:
+        raise AssertionError(f"interruptible != monolithic in {differ}")
+    finite = all(bool(torch.isfinite(a).all()) for a in cut.state)
+    if not (cut_aborted and len(polls) == 1 and finite
+            and np.isfinite(float(cut.err_final))):
+        raise AssertionError(f"abort run: aborted={cut_aborted} polls={len(polls)} "
+                             f"finite={finite} err_final={float(cut.err_final)}")
+    emit("interruptible", equal_fields=len(want), err_final=float(seg.err_final),
+         aborted_err_final=float(cut.err_final), aborted_ok=bool(cut.ok))
+
+
+# ---------------------------------------------------------------------------
+# phase 8: the tracking solve
+# ---------------------------------------------------------------------------
+
+
+def ransac_input(dn, sn):
+    """The MC-RANSAC input of the frame as tracking.py:562-615 builds it:
+    every match (async-mono rows at their camera times, stereo-camera rows
+    at t_cur on the last camera), dt = t_obs - t_last, padded to a pow2
+    bucket with a safe row (a point 5 m ahead of the stereo camera of the
+    last frame, at its principal point, dt = 0); 23 samples of 3 from a
+    seeded generator (tracking.py:125, :612-615)."""
+    n_m, n_s = dn["mg_t"].shape[0], dn["st_obs"].shape[0]
+    cs = dn["Tbc"].shape[0] - 1
+    t_last, t_cur = float(dn["t_prev"]), float(dn["t_cur"])
+    n = n_m + n_s
+    nb = 16
+    while nb < n:
+        nb *= 2
+    Twc = sn["T"][0] @ dn["Tbc"][cs]
+    ahead = Twc[:3, :3] @ np.array([0.0, 0.0, 5.0]) + Twc[:3, 3]
+    pad = nb - n
+    fields = dict(
+        T_last=sn["T"][0],
+        v0=sn["v"][1],
+        dt=np.concatenate([dn["mg_t"] - t_last, np.full(n_s, t_cur - t_last), np.zeros(pad)]),
+        Xw=np.concatenate([dn["mg_Xw"], dn["st_Xw"], np.tile(ahead, (pad, 1))]),
+        obs=np.concatenate([dn["mg_obs"], dn["st_obs"][:, :2],
+                            np.tile(dn["K"][cs, 2:4], (pad, 1))]),
+        cam=np.concatenate([dn["mg_cam"], np.full(n_s, cs), np.full(pad, cs)]),
+        w=np.concatenate([dn["mg_w"], dn["st_w"], np.ones(pad)]),
+        valid=np.arange(nb) < n,
+        Tbc=dn["Tbc"],
+        K=dn["K"],
+    )
+    rng = np.random.RandomState(0)
+    samples = np.stack([rng.choice(n, 3, replace=False) for _ in range(RANSAC_HYPOTHESES)])
+    return fields, samples
+
+
+def tracking_frame():
+    """The frame's numpy arrays: pose problem (per-edge and table), start
+    state, ground truth, RANSAC input, and the mask of injected outliers
+    (the rows whose observation differs from the same seed's clean run)."""
+    dn, sn, gn = make_pose_problem_numpy(**TRACKING)
+    clean, _, _ = make_pose_problem_numpy(**{**TRACKING, "outlier_frac": 0.0})
+    injected = np.concatenate([(dn["mg_obs"] != clean["mg_obs"]).any(1),
+                               (dn["st_obs"] != clean["st_obs"]).any(1)])
+    mg_it, it_t = pose_solver.interp_table(dn["mg_t"])
+    branches = {"edge": dn, "table": {**dn, "mg_it": mg_it, "it_t": it_t}}
+    rf, samples = ransac_input(dn, sn)
+    return branches, sn, gn, rf, samples, injected
+
+
+class Counts:
+    """Host reads of the LM loops and linearizations of the pose solver,
+    counted through the solvers' own seams while a `with` block runs."""
+
+    def __init__(self):
+        self.reads = 0
+        self.lin = 0
+
+    def __enter__(self):
+        read, make = tlm._read, pose_solver.make_problem
+
+        def counting_read(t):
+            self.reads += 1
+            return read(t)
+
+        def counting_make(*args, **kw):
+            problem = make(*args, **kw)
+
+            def linearize(s):
+                self.lin += 1
+                return problem.linearize(s)
+
+            return problem._replace(linearize=linearize)
+
+        self._patches = [mock.patch.object(tlm, "_read", counting_read),
+                         mock.patch.object(pose_solver, "make_problem", counting_make)]
+        for p in self._patches:
+            p.start()
+        return self
+
+    def __exit__(self, *exc):
+        for p in self._patches:
+            p.stop()
+
+
+def pose_flags(ok, inl, n_m, n_s):
+    """Initial outlier flags from the RANSAC result (none when it failed,
+    Tracking.cc:1987-1988)."""
+    if not bool(ok):
+        inl = torch.ones_like(inl)
+    return ~inl[:n_m], ~inl[n_m:n_m + n_s]
+
+
+def check_pose(name, res, gt_T1, n_edges):
+    state, _, _, (_, n_inl) = res
+    t_err = float((state.T[1].double() - gt_T1.double()).abs().max())
+    n_inl = int(n_inl)
+    lo, hi = 0.8 * n_edges * 0.85, n_edges - 0.8 * 0.15 * n_edges
+    if not (t_err < 2e-2 and lo <= n_inl <= hi):
+        raise AssertionError(f"pose_gp_optimize[{name}]: |T - gt| {t_err:.3e}, "
+                             f"inliers {n_inl} not in [{lo}, {hi}]")
+    return {"T_err": t_err, "inliers": n_inl, "bounds": [lo, hi]}
+
+
+def time_calls(fn, n_warm=2, n_iter=20, n_rep=5):
+    """ms per call: median of n_rep blocks of n_iter, behind synchronize."""
+    for _ in range(n_warm):
+        fn()
+    sync()
+    samples = []
+    for _ in range(n_rep):
+        sync()
+        t0 = time.perf_counter()
+        for _ in range(n_iter):
+            fn()
+        sync()
+        samples.append((time.perf_counter() - t0) / n_iter * 1e3)
+    return statistics.median(samples), samples
+
+
+def phase_tracking(device):
+    branches, sn, gn, rf, samples, injected = tracking_frame()
+    n_m, n_s = branches["edge"]["mg_t"].shape[0], branches["edge"]["st_obs"].shape[0]
+    n = n_m + n_s
+    f32 = dict(device=device, dtype=torch.float32)
+    rdata = convert.vel_ransac_from_numpy(rf, **f32)
+    samp = torch.tensor(samples, device=device)
+    pose = {b: convert.pose_from_numpy(d, sn, **f32) for b, d in branches.items()}
+    gt_T1 = torch.tensor(gn["T"][1], **f32)
+    ransac = lambda d: vel_ransac.mc_ransac(  # noqa: E731
+        d, samp.to(d.dt.device), RANSAC_THRESHOLD, RANSAC_MIN_MATCH)
+
+    # the main path: counts set to 0 just before, read just after
+    per = {}
+    sync()
+    interp_chain.LAUNCHES = 0
+    with Counts() as c:
+        ok, v_best, inl, n_in = ransac(rdata)
+        flags = pose_flags(ok, inl, n_m, n_s)
+        sync()
+        per["mc_ransac"] = {"host_reads": c.reads, "kernel_launches": interp_chain.LAUNCHES}
+        res = {}
+        for b in ("edge", "table"):
+            reads0, lin0, launches0 = c.reads, c.lin, interp_chain.LAUNCHES
+            res[b] = pose_solver.pose_gp_optimize(*pose[b], *flags)
+            sync()
+            per[b] = {"host_reads": c.reads - reads0, "linearizations": c.lin - lin0,
+                      "kernel_launches": interp_chain.LAUNCHES - launches0}
+    launches = interp_chain.LAUNCHES
+
+    true_in = int((~injected).sum())
+    kept_out = float(inl[:n].cpu().numpy()[injected].mean())
+    if not (bool(ok) and int(n_in) >= 0.85 * true_in and kept_out < 0.3):
+        raise AssertionError(f"mc_ransac: ok={bool(ok)} inliers {int(n_in)} of {true_in} "
+                             f"true, outliers kept {kept_out:.2f}")
+    pose_checks = {b: check_pose(b, res[b], gt_T1, n) for b in res}
+    need = per["table"]["linearizations"] + 4  # + the 4 re-levelings
+    if per["table"]["kernel_launches"] < need:
+        raise AssertionError(f"table branch launched the kernel "
+                             f"{per['table']['kernel_launches']}x, needs >= {need}")
+    if per["edge"]["kernel_launches"] or per["mc_ransac"]["kernel_launches"]:
+        raise AssertionError(f"kernel launched off the table branch: {per}")
+    emit("tracking", shapes={"mono": n_m, "stereo": n_s, "ransac_rows": int(rdata.dt.shape[0]),
+                             "hypotheses": RANSAC_HYPOTHESES,
+                             "U": int(pose["table"][0].it_t.shape[0])},
+         dtype="float32", ransac={"ok": bool(ok), "inliers": int(n_in), "true_inliers": true_in,
+                                  "injected_outliers_kept": kept_out},
+         pose=pose_checks, per_solve=per)
+
+    # float64: the card against the CPU on the same inputs
+    out = {}
+    for dev in (device, "cpu"):
+        f64 = dict(device=dev, dtype=torch.float64)
+        rd = convert.vel_ransac_from_numpy(rf, **f64)
+        v_h, inl_h, n_h = vel_ransac.score_hypotheses(rd, samp.to(dev), RANSAC_THRESHOLD)
+        best = int(torch.argmax(n_h))
+        o = {"best": best, "inl": inl_h[best], "count": int(n_h[best]), "v": v_h[best]}
+        fl = pose_flags(n_h[best] >= RANSAC_MIN_MATCH, inl_h[best], n_m, n_s)
+        for b, d in branches.items():
+            pd, ps = convert.pose_from_numpy(d, sn, **f64)
+            H, bv, _ = pose_solver.make_problem(pd, pd.mg_valid, pd.st_valid, True).linearize(ps)
+            st, lm_, ls_, _ = pose_solver.pose_gp_optimize(pd, ps, *fl)
+            o[b] = {"H": H, "b": bv, "T": st.T, "v": st.v, "masks": torch.cat([lm_, ls_])}
+        out[dev] = o
+    card, cpu = out[device], out["cpu"]
+    if not (card["best"] == cpu["best"] and card["count"] == cpu["count"]
+            and torch.equal(card["inl"].cpu(), cpu["inl"])):
+        raise AssertionError(f"mc_ransac f64 card vs cpu: best {card['best']}/{cpu['best']}, "
+                             f"count {card['count']}/{cpu['count']}")
+    errs = {"ransac_v": assert_close("ransac v", card["v"], cpu["v"], 1e-9, 1e-9)}
+    masks_equal = {}
+    for b in branches:
+        errs[f"{b}.H"] = assert_close(f"{b} H", card[b]["H"], cpu[b]["H"], 1e-9, 1e-10)
+        errs[f"{b}.b"] = assert_close(f"{b} b", card[b]["b"], cpu[b]["b"], 1e-9, 1e-10)
+        errs[f"{b}.T"] = assert_close(f"{b} T", card[b]["T"], cpu[b]["T"], 1e-7, 1e-7)
+        errs[f"{b}.v"] = assert_close(f"{b} v", card[b]["v"], cpu[b]["v"], 1e-7, 1e-7)
+        masks_equal[b] = bool(torch.equal(card[b]["masks"].cpu(), cpu[b]["masks"]))
+    emit("tracking_f64_card_vs_cpu", worst_fraction_of_tolerance=errs,
+         best_hypothesis=card["best"], inliers=card["count"], final_masks_equal=masks_equal,
+         tolerances={"ransac_v": [1e-9, 1e-9], "H_b": [1e-9, 1e-10], "state": [1e-7, 1e-7]})
+
+    # timing (float32)
+    ms = {}
+    ms["mc_ransac"] = time_calls(lambda: ransac(rdata))
+    for b in ("edge", "table"):
+        ms[f"pose_gp_optimize_{b}"] = time_calls(
+            lambda b=b: pose_solver.pose_gp_optimize(*pose[b], *flags))
+    emit("tracking_timing", ms_median={k: v[0] for k, v in ms.items()},
+         ms_blocks={k: v[1] for k, v in ms.items()}, blocks="5 x 20 after 2 warm-up")
+    return launches, {k: v[0] for k, v in ms.items()}, per, (rdata, ransac, pose, flags)
+
+
+def profile_tracking(rdata, ransac, pose, flags, out_dir) -> None:
+    """torch.profiler over one mc_ransac and one pose solve per branch."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity
+    from torch.profiler import profile as torch_profile
+
+    calls = {"mc_ransac": lambda: ransac(rdata)}
+    for b in ("edge", "table"):
+        calls[f"pose_gp_optimize_{b}"] = lambda b=b: pose_solver.pose_gp_optimize(*pose[b], *flags)
+    out_dir.mkdir(parents=True, exist_ok=True)
+    report, tables = {}, []
+    for name, fn in calls.items():
+        fn()
+        with torch_profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            sync()
+            t0 = time.perf_counter()
+            fn()
+            sync()
+            wall_ms = (time.perf_counter() - t0) * 1e3
+        events = prof.key_averages()
+        kernels = [e for e in events if e.device_type != DeviceType.CPU]
+        dev_ms = sum(e.self_device_time_total for e in kernels) / 1e3
+        report[name] = {"wall_ms": wall_ms, "device_ms": dev_ms,
+                        "device_busy_share": dev_ms / wall_ms,
+                        "device_kernel_launches": sum(e.count for e in kernels)}
+        tables.append(f"== {name}\n" + events.table(sort_by="self_device_time_total",
+                                                     row_limit=25))
+    (out_dir / "tracking_profile.txt").write_text("\n\n".join(tables))
+    emit("tracking_profile", per_solve=report, table=str(out_dir / "tracking_profile.txt"))
+
+
 def main() -> None:
     # 1. device
     if not torch.cuda.is_available():
@@ -361,6 +670,12 @@ def main() -> None:
     emit("summary", lm_iteration_ms=lm_ms, chain_ms=chain_ms, card=smi)
     # 6. profile
     profile(data, state0, _build.BUILD_DIR.parent / "profile")
+    # 7. the interruptible local BA
+    phase_interruptible(data, state0)
+    # 8. the tracking solve
+    t_launches, t_ms, t_per, prof_args = phase_tracking(device)
+    emit("tracking_summary", ms=t_ms, per_solve=t_per, card=smi)
+    profile_tracking(*prof_args, _build.BUILD_DIR.parent / "profile")
 
     print(smi, flush=True)
     print(json.dumps({"kernels": [{
@@ -368,7 +683,7 @@ def main() -> None:
         "route": "cuda",
         "source": "amcslam_tpu_torch/csrc/interp_chain.cu",
         "replaces": "amcslam_tpu/ops/pallas_chain.py:296",
-        "launches": launches,
+        "launches": launches + t_launches,
         "max_abs_err": max_abs_err,
         "ms": chain_ms["kernel"],
         "plain_ms": chain_ms["plain"],

@@ -20,7 +20,9 @@ def all_modules():
 def test_every_module_imports_without_jax():
     mods = all_modules()
     assert {"amcslam_tpu_torch.solver.ba", "amcslam_tpu_torch.ops.interp_chain",
-            "amcslam_tpu_torch.convert", "amcslam_tpu_torch._build"} <= set(mods)
+            "amcslam_tpu_torch.convert", "amcslam_tpu_torch._build",
+            "amcslam_tpu_torch.solver.pose_solver",
+            "amcslam_tpu_torch.ransac.vel_ransac"} <= set(mods)
     code = (
         "import importlib, sys\n"
         f"for m in {mods!r}:\n"
