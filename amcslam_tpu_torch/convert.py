@@ -89,6 +89,92 @@ def vel_ransac_from_reference(data, device="cpu", dtype=torch.float64) -> VelRan
     return vel_ransac_from_numpy(_arrays(data), device=device, dtype=dtype)
 
 
+def _copy(a):
+    return None if a is None else np.array(a, copy=True)
+
+
+def _copy_list(xs):
+    return None if xs is None else [_copy(x) for x in xs]
+
+
+def atlas_from_reference(atlas):
+    """The port's Atlas/Map/KeyFrame/MapPoint/GPObs graph rebuilt from a
+    reference `Atlas` by attribute (nothing of the reference is imported):
+    ids, kf_seq, the prev_kf/next_kf/parent links, covisibility,
+    observations and GP observations are kept, every array is copied. The
+    pipeline's counterpart of `from_reference`, so both packages can run
+    extraction and tracking from one map."""
+    from .pipeline import map_store as ms
+
+    kfs: dict[int, ms.KeyFrame] = {}
+
+    def keyframe(k):
+        if k is None:
+            return None
+        if k.id not in kfs:
+            kfs[k.id] = ms.KeyFrame(
+                timestamp=k.timestamp, cam_times=_copy(k.cam_times), Twb=_copy(k.Twb),
+                velocity=_copy(k.velocity), keypoints=_copy_list(k.keypoints),
+                kp_octaves=_copy_list(k.kp_octaves), descriptors=_copy_list(k.descriptors),
+                kp_ur=_copy(k.kp_ur), kp_depth=_copy(k.kp_depth),
+                kp_angles=_copy_list(k.kp_angles), id=k.id, kf_seq=k.kf_seq,
+                matches=_copy(k.matches), covisibility=dict(k.covisibility),
+                loop_edges=[(i, _copy(C)) for i, C in k.loop_edges], bad=k.bad,
+                bow=None if k.bow is None else dict(k.bow),
+                kp_sigma2_scale=_copy_list(getattr(k, "kp_sigma2_scale", None)),
+            )
+        return kfs[k.id]
+
+    def map_point(p):
+        return ms.MapPoint(
+            position=_copy(p.position), descriptor=_copy(p.descriptor), id=p.id,
+            observations={k: _copy(s) for k, s in p.observations.items()},
+            gp_observations=[
+                (k, ms.GPObs(time=o.time, cam=o.cam, uv=_copy(o.uv), ur=o.ur,
+                             octave=o.octave, sigma2_scale=getattr(o, "sigma2_scale", 1.0)))
+                for k, o in p.gp_observations],
+            normal=_copy(p.normal), min_dist=p.min_dist, max_dist=p.max_dist,
+            n_visible=p.n_visible, n_found=p.n_found, bad=p.bad, first_kf_id=p.first_kf_id,
+        )
+
+    def map_(m):
+        out = ms.Map(m.id)
+        out.change_index = m.change_index
+        out._kf_seq = m._kf_seq
+        out.keyframes = {i: keyframe(k) for i, k in m.keyframes.items()}
+        out.map_points = {i: map_point(p) for i, p in m.map_points.items()}
+        out.origin_kf = keyframe(m.origin_kf)
+        return out
+
+    out = ms.Atlas()
+    out.maps = [map_(m) for m in atlas.maps]
+    out.active = out.maps[[m is atlas.active for m in atlas.maps].index(True)]
+    out.cameras = list(atlas.cameras)
+    # the links last: a link may name a keyframe outside every map's table
+    pending = [k for m in atlas.maps for k in m.keyframes.values()]
+    while pending:
+        k = pending.pop()
+        port_kf = keyframe(k)
+        for name in ("prev_kf", "next_kf", "parent"):
+            ref_link = getattr(k, name)
+            if ref_link is not None and ref_link.id not in kfs:
+                pending.append(ref_link)
+            setattr(port_kf, name, keyframe(ref_link))
+    return out
+
+
+def fetch(*tensors, dtype) -> list[np.ndarray]:
+    """Host copies of device tensors in one device-to-host read, all in
+    `dtype` (bool masks come back as 0/1; integer counts exactly while they
+    fit the dtype's mantissa)."""
+    flat = torch.cat([t.reshape(-1).to(dtype) for t in tensors]).cpu().numpy()
+    out, o = [], 0
+    for t in tensors:
+        out.append(flat[o:o + t.numel()].reshape(tuple(t.shape)))
+        o += t.numel()
+    return out
+
+
 def to_numpy(nt) -> dict[str, np.ndarray | None]:
     """Field name -> numpy array of a port NamedTuple."""
     return {k: None if v is None else v.detach().cpu().numpy()

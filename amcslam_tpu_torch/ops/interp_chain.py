@@ -16,6 +16,7 @@ eager PyTorch the op chain costs several hundred small launches per call.
 from __future__ import annotations
 
 import ctypes
+import threading
 
 import torch
 
@@ -23,8 +24,10 @@ from .. import _build
 from ..factors import reprojection
 
 # Launches of the CUDA kernel since import (or since a caller reset it):
-# lets a run show that the main path went through the kernel.
+# lets a run show that the main path went through the kernel. The threaded
+# pipeline launches from two threads, so the count is taken under a lock.
 LAUNCHES = 0
+_LAUNCHES_LOCK = threading.Lock()
 
 _LIB_NAME = "interp_chain"
 _SIGNATURE = [ctypes.c_void_p] * 10 + [ctypes.c_int, ctypes.c_void_p]
@@ -93,5 +96,6 @@ def gp_interp_packs(T1, v1, T2, v2, t1, t2, t):
             S, stream)
     if rc != 0:
         raise RuntimeError(f"interp_chain kernel launch failed: CUDA error {rc}")
-    LAUNCHES += 1
+    with _LAUNCHES_LOCK:
+        LAUNCHES += 1
     return out

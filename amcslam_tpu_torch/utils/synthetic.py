@@ -1,6 +1,6 @@
 """Synthetic pose-solve and local-BA problems (port of
 `amcslam_tpu/utils/synthetic.py`: `_np_exp_se3`, `make_rig`,
-`make_pose_problem`, `make_local_ba_problem`).
+`make_pose_problem`, `make_local_ba_problem`, `make_sequence`).
 
 The generator is the reference's numpy code, draw for draw from
 `np.random.RandomState(seed)`, so for the same arguments it emits the same
@@ -424,3 +424,124 @@ def make_local_ba_problem(
     )
     data, state0 = ba_from_numpy(data_np, state0_np, device=device, dtype=dtype)
     return data, state0, state_from_numpy(gt_np, device=device, dtype=dtype)
+
+
+def make_sequence(
+    n_frames=30,
+    n_cams=3,
+    n_lm=400,
+    fps=10.0,
+    noise_px=0.3,
+    stereo_depth_frac=0.8,
+    seed=0,
+):
+    """Synthetic multi-camera sequence for end-to-end pipeline tests (a copy
+    of `amcslam_tpu/utils/synthetic.py::make_sequence`, draw for draw).
+
+    Produces per-frame Frames (pipeline.map_store.Frame) with keypoints =
+    projections of persistent landmarks (so descriptor matching is exact by
+    construction: each landmark has a unique random 256-bit descriptor),
+    stereo depths on the reference camera, and async camera timestamps.
+    Returns (frames, rig, gt_poses (N,4,4), landmarks).
+
+    The reference projects every landmark in every camera of every frame
+    one at a time. Here a vectorized pass first drops the landmarks that
+    are far outside a camera's view (margins of 0.1 m in depth and 1 px in
+    the image, far above the rounding difference between the two forms),
+    and the reference's per-landmark projection decides for the rest, so
+    the outputs and the random draws are the reference's exactly."""
+    from ..pipeline.map_store import Frame
+    from ..pipeline.rig import Rig
+
+    rng = np.random.RandomState(seed)
+    Tbc, K, bf = make_rig(n_cams, seed + 1)
+    rig = Rig(Tbc=Tbc, K=K, bf=bf)
+
+    dt = 1.0 / fps
+    v_true = np.array([1.5, 0.1, 0.0, 0.0, 0.0, 0.12])
+    Ts = [np.eye(4)]
+    for k in range(1, n_frames):
+        vk = v_true + 0.2 * np.sin(0.3 * k) * np.array([1, 0.3, 0, 0, 0, 0.5])
+        Ts.append(Ts[-1] @ _np_exp_se3(vk * dt))
+    Ts = np.stack(Ts)
+
+    # landmarks sprinkled along the trajectory in front of the stereo camera
+    anchor = rng.randint(0, n_frames, n_lm)
+    X = np.zeros((n_lm, 3))
+    for l in range(n_lm):  # noqa: E741
+        Twc = Ts[anchor[l]] @ Tbc[-1]
+        Xc = np.array([rng.uniform(-5, 5), rng.uniform(-3, 3), rng.uniform(4, 25)])
+        X[l] = Twc[:3, :3] @ Xc + Twc[:3, 3]
+    descs = rng.randint(0, 256, (n_lm, 32)).astype(np.uint8)
+
+    def project_cam(Twb, c, Xw):
+        Twc = Twb @ Tbc[c]
+        Rcw = Twc[:3, :3].T
+        Xc = Rcw @ (Xw - Twc[:3, 3])
+        if Xc[2] < 0.5:
+            return None, Xc
+        u = K[c, 0] * Xc[0] / Xc[2] + K[c, 2]
+        v = K[c, 1] * Xc[1] / Xc[2] + K[c, 3]
+        if not (0 <= u < 960 and 0 <= v < 600):
+            return None, Xc
+        return np.array([u, v]), Xc
+
+    def candidates(Twb, c):
+        """Landmarks not certainly outside camera c's view (superset of the
+        ones project_cam keeps), in increasing index order."""
+        Twc = Twb @ Tbc[c]
+        Xc = (X - Twc[:3, 3]) @ Twc[:3, :3]
+        z = Xc[:, 2]
+        zs = np.maximum(z, 1e-9)
+        u = K[c, 0] * Xc[:, 0] / zs + K[c, 2]
+        v = K[c, 1] * Xc[:, 1] / zs + K[c, 3]
+        keep = (z >= 0.4) & (u >= -1.0) & (u < 961.0) & (v >= -1.0) & (v < 601.0)
+        return np.nonzero(keep)[0]
+
+    frames = []
+    for k in range(n_frames):
+        t_frame = k * dt
+        cam_times = rig.cam_times(t_frame)
+        kps, octs, ds = [], [], []
+        ur, depth = None, None
+        for c in range(n_cams):
+            # pose at this camera's timestamp (constant twist within frame)
+            toff = cam_times[c] - t_frame
+            if k > 0:
+                vk = v_true + 0.2 * np.sin(0.3 * k) * np.array([1, 0.3, 0, 0, 0, 0.5])
+            else:
+                vk = v_true
+            Twb_c = Ts[k] @ _np_exp_se3(vk * toff)
+            kp_c, oc_c, d_c, ur_c, z_c = [], [], [], [], []
+            for l in candidates(Twb_c, c):  # noqa: E741
+                uv, Xc = project_cam(Twb_c, c, X[l])
+                if uv is None:
+                    continue
+                uv = uv + rng.randn(2) * noise_px
+                kp_c.append(uv)
+                oc_c.append(0)
+                d_c.append(descs[l])
+                if c == n_cams - 1:
+                    has_d = rng.rand() < stereo_depth_frac
+                    ur_c.append(uv[0] - bf / Xc[2] if has_d else -1.0)
+                    z_c.append(Xc[2] if has_d else -1.0)
+            kps.append(np.array(kp_c).reshape(-1, 2))
+            octs.append(np.array(oc_c, np.int64))
+            ds.append(np.array(d_c, np.uint8).reshape(-1, 32))
+            if c == n_cams - 1:
+                ur = np.array(ur_c)
+                depth = np.array(z_c)
+        frames.append(
+            Frame(
+                timestamp=t_frame,
+                cam_times=cam_times,
+                Twb=np.eye(4),
+                velocity=np.zeros(6),
+                keypoints=kps,
+                kp_octaves=octs,
+                descriptors=ds,
+                kp_ur=ur,
+                kp_depth=depth,
+            )
+        )
+    return frames, rig, Ts, (X, descs)

@@ -38,9 +38,27 @@ result line):
                512 (23 hypotheses, 3 px, min 30), then `pose_gp_optimize`
                with the RANSAC outlier flags, per edge and through the
                interpolation table (the kernel); float64 card vs CPU;
-               ms per solve (median of 5 blocks of 20), kernel launches and
+               ms per solve (median of 3 blocks of 10), kernel launches and
                host reads per solve, and a torch.profiler table in
                build/profile/tracking_profile.txt.
+  9. system — the port's entry point `System.track_multicamera` (loop
+               closing off) on make_sequence(60 frames, 6 cameras, 3000
+               landmarks, 0.3 px, seed 0) with the tracking config of
+               tests/test_system.py; g++ builds the native matcher into
+               build/native/ first. 9a: float32, sequential: every frame
+               OK, ATE <= 0.5 % of the path, >= 15 keyframes, at least one
+               chain-kernel launch per tracked frame plus one per local-BA
+               linearization; per-frame tracking ms, local-BA ms per
+               keyframe, the largest problem sizes, peak memory. 9b: float64
+               on the card against the port on the CPU, first 15 frames,
+               deterministic algorithms on: the same states, keyframe ids and
+               map-point counts, poses to 1e-8 m / 1e-8 rad. 9c: the threaded
+               schedule, float32, the first 30 frames: OK in the last 5, a
+               finite trajectory, ATE <= 2 % of the path.
+
+Phase 8's timing runs 3 blocks of 10 solves (5 of 20 before phase 9 was
+added) and 9c runs 30 of the 60 frames, so that the whole run stays near
+ten minutes.
 
 The last three lines are the card's `nvidia-smi` name and power limit, the
 kernels' JSON record and the result line.
@@ -48,6 +66,8 @@ kernels' JSON record and the result line.
 
 from __future__ import annotations
 
+import copy
+import itertools
 import json
 import statistics
 import subprocess
@@ -57,13 +77,17 @@ from unittest import mock
 import numpy as np
 import torch
 
-from amcslam_tpu_torch import _build, convert
+from amcslam_tpu_torch import _build, convert, native
 from amcslam_tpu_torch.ops import interp_chain, lie
+from amcslam_tpu_torch.pipeline import extraction, local_mapping, map_store, tracking
+from amcslam_tpu_torch.pipeline.system import System
 from amcslam_tpu_torch.ransac import vel_ransac
 from amcslam_tpu_torch.solver import ba, pose_solver
 from amcslam_tpu_torch.solver import lm as tlm
+from amcslam_tpu_torch.utils.io import ate_rmse
 from amcslam_tpu_torch.utils.synthetic import (make_local_ba_problem_numpy,
-                                               make_pose_problem_numpy)
+                                               make_pose_problem_numpy, make_sequence)
+from amcslam_tpu_torch.utils.timing import GLOBAL_TIMER
 
 HEADLINE = dict(n_kf=50, n_fixed=1, n_lm=5000, n_cams=6, obs_per_lm=4,
                 gpobs_per_lm=2, noise_px=0.5, seed=0)
@@ -76,6 +100,16 @@ RANSAC_THRESHOLD = 3.0
 RANSAC_MIN_MATCH = 30
 KEYS = ("Twb", "Tbw", "Q")
 CHAIN_ARGS = ("T1", "v1", "T2", "v2", "t1", "t2", "t")
+# tests/test_system.py:21-22; the rig of 5 async monos + a stereo camera is
+# the AMV width (tests/test_e2e_scenarios.py:63-66)
+SYSTEM_SEQ = dict(n_frames=60, n_cams=6, n_lm=3000, noise_px=0.3, seed=0)
+SYSTEM_CFG = dict(max_frames_between_kf=3, ransac_min_match=15, kf_translation_th=0.25)
+SYSTEM_MIN_KP = 300        # mean keypoints per camera per frame
+SYSTEM_MAX_LM = 6000
+SYSTEM_F64_FRAMES = 15
+SYSTEM_THREADED_FRAMES = 30
+SYSTEM_ATE_PCT = 0.5        # ATE bound of 9a, % of the path length
+ID_START = 10_000_000
 
 
 def emit(phase: str, **fields) -> None:
@@ -500,7 +534,7 @@ def check_pose(name, res, gt_T1, n_edges):
     return {"T_err": t_err, "inliers": n_inl, "bounds": [lo, hi]}
 
 
-def time_calls(fn, n_warm=2, n_iter=20, n_rep=5):
+def time_calls(fn, n_warm=2, n_iter=10, n_rep=3):
     """ms per call: median of n_rep blocks of n_iter, behind synchronize."""
     for _ in range(n_warm):
         fn()
@@ -604,7 +638,7 @@ def phase_tracking(device):
         ms[f"pose_gp_optimize_{b}"] = time_calls(
             lambda b=b: pose_solver.pose_gp_optimize(*pose[b], *flags))
     emit("tracking_timing", ms_median={k: v[0] for k, v in ms.items()},
-         ms_blocks={k: v[1] for k, v in ms.items()}, blocks="5 x 20 after 2 warm-up")
+         ms_blocks={k: v[1] for k, v in ms.items()}, blocks="3 x 10 after 2 warm-up")
     return launches, {k: v[0] for k, v in ms.items()}, per, (rdata, ransac, pose, flags)
 
 
@@ -637,6 +671,269 @@ def profile_tracking(rdata, ransac, pose, flags, out_dir) -> None:
                                                      row_limit=25))
     (out_dir / "tracking_profile.txt").write_text("\n\n".join(tables))
     emit("tracking_profile", per_solve=report, table=str(out_dir / "tracking_profile.txt"))
+
+
+# ---------------------------------------------------------------------------
+# phase 9: the System entry point
+# ---------------------------------------------------------------------------
+
+
+def system_sequence():
+    """The phase's sequence; n_lm is raised (to at most 6,000) while the
+    mean keypoints per camera per frame stay below 300."""
+    seq = dict(SYSTEM_SEQ)
+    t0 = time.perf_counter()
+    while True:
+        frames, rig, Ts, _ = make_sequence(**seq)
+        kp = float(np.mean([len(k) for f in frames for k in f.keypoints]))
+        if kp >= SYSTEM_MIN_KP or seq["n_lm"] >= SYSTEM_MAX_LM:
+            break
+        seq["n_lm"] = min(SYSTEM_MAX_LM, 2 * seq["n_lm"])
+    path = float(np.linalg.norm(np.diff(Ts[:, :3, 3], axis=0), axis=1).sum())
+    emit("system_sequence", **seq, mean_keypoints_per_camera_per_frame=kp,
+         path_m=path, seconds=time.perf_counter() - t0)
+    if kp < SYSTEM_MIN_KP:
+        raise AssertionError(f"{kp:.1f} keypoints per camera per frame at n_lm={seq['n_lm']}")
+    return frames, rig, Ts, path
+
+
+class SystemProbe:
+    """Counts and sizes on the System's path, taken through its seams while a
+    `with` block runs: local-BA linearizations, the largest local-BA window
+    and pose problem (real and padded), the local-mapping time of each
+    `track_multicamera` call."""
+
+    def __init__(self):
+        self.lin = 0
+        self.lba = {}
+        self.pose = {}
+
+    def __enter__(self):
+        make, ext_lba = ba.make_ba_problem, local_mapping.extract_local_ba
+        ext_pose = tracking.extract_pose_problem
+
+        def counting_make(*args, **kw):
+            problem = make(*args, **kw)
+
+            def linearize(s):
+                self.lin += 1
+                return problem.linearize(s)
+
+            return problem._replace(linearize=linearize)
+
+        def lba(*args, **kw):
+            data, state, h = ext_lba(*args, **kw)
+            real = {"K": len(h["kfs"]), "Em": len(h["mg_refs"]), "Es": len(h["st_refs"]),
+                    "L": len(h["lms"])}
+            if real["Em"] + real["Es"] > self.lba.get("real", {}).get("edges", -1):
+                self.lba = {"real": {**real, "edges": real["Em"] + real["Es"]},
+                            "padded": {"K": data.n_poses, "Em": int(data.mg_obs.shape[0]),
+                                       "Es": int(data.st_obs.shape[0]),
+                                       "L": int(state.X.shape[0])}}
+            return data, state, h
+
+        def pose(*args, **kw):
+            data, state, h = ext_pose(*args, **kw)
+            if h["n_mg"] + h["n_st"] > self.pose.get("real", {}).get("edges", -1):
+                self.pose = {"real": {"Nm": h["n_mg"], "Ns": h["n_st"],
+                                      "edges": h["n_mg"] + h["n_st"]},
+                             "padded": {"Nm": h["Nm"], "Ns": h["Ns"],
+                                        "U": int(data.it_t.shape[0])}}
+            return data, state, h
+
+        self._patches = [mock.patch.object(ba, "make_ba_problem", counting_make),
+                         mock.patch.object(local_mapping, "extract_local_ba", lba),
+                         mock.patch.object(tracking, "extract_pose_problem", pose)]
+        for p in self._patches:
+            p.start()
+        return self
+
+    def __exit__(self, *exc):
+        for p in self._patches:
+            p.stop()
+
+
+def run_system(frames, rig, device, dtype, threaded=False):
+    """One System run over `frames` (copies; tracking mutates them). Keyframe
+    and map-point ids start at ID_START and the shape buckets start empty,
+    so two runs of one sequence see the same ids and shapes. Returns the
+    System and per-frame records: state, wall ms of the call (synchronized),
+    ms of local mapping inside it (sequential mode), keyframe ids, map-point
+    count, pose."""
+    frames = copy.deepcopy(frames)
+    on_card = torch.device(device).type == "cuda"
+    map_store._ids = itertools.count(ID_START)
+    extraction.reset_bucket_high_water()
+    sys_ = System(copy.deepcopy(rig), tracking.TrackingConfig(**SYSTEM_CFG),
+                  enable_loop_closing=False, threaded=threaded, device=device, dtype=dtype)
+    mapping_ms = [0.0]
+    run_once = sys_.local_mapper.run_once
+
+    def timed_run_once(*args, **kw):
+        t0 = time.perf_counter()
+        try:
+            return run_once(*args, **kw)
+        finally:
+            mapping_ms[0] += (time.perf_counter() - t0) * 1e3
+
+    if not threaded:
+        sys_.local_mapper.run_once = timed_run_once
+    records = []
+    for f in frames:
+        n_kf = sys_.atlas.active.n_keyframes()
+        mapping_ms[0] = 0.0
+        if on_card:
+            sync()
+        t0 = time.perf_counter()
+        st = sys_.track_multicamera(f)
+        if on_card:
+            sync()
+        ms = (time.perf_counter() - t0) * 1e3
+        m = sys_.atlas.active
+        records.append({"state": st.name, "ms": ms, "mapping_ms": mapping_ms[0],
+                        "kf": m.n_keyframes() > n_kf, "kf_ids": sorted(m.keyframes),
+                        "n_mp": m.n_map_points(), "Twb": np.array(f.Twb, np.float64)})
+    return sys_, records
+
+
+def trajectory_ate(sys_, frames, Ts) -> float:
+    """ATE of `trajectory_poses()` against the ground truth, associated by
+    the frames' own timestamps (k * 0.1 in make_sequence: k / 10 differs from
+    it in the last bit for some k, and nearest-timestamp association would
+    then pair a pose with the next frame's ground truth)."""
+    poses = sys_.tracker.trajectory_poses()
+    est_t = np.array([t for t, _ in poses])
+    est_T = np.stack([T for _, T in poses])
+    if not np.isfinite(est_T).all():
+        raise AssertionError("non-finite trajectory")
+    gt_t = np.array([f.timestamp for f in frames])
+    return ate_rmse(est_t, est_T, gt_t, Ts)[0]
+
+
+def rot_angle(Ra, Rb) -> float:
+    R = Ra.T @ Rb
+    s = np.linalg.norm([R[2, 1] - R[1, 2], R[0, 2] - R[2, 0], R[1, 0] - R[0, 1]]) / 2.0
+    return float(np.arctan2(s, (np.trace(R) - 1.0) / 2.0))
+
+
+def pct(xs, q) -> float | None:
+    return float(np.percentile(xs, q)) if len(xs) else None
+
+
+def system_sequential(frames, rig, Ts, path_m, device):
+    """9a: float32, sequential, all frames; the counts are set to 0 just
+    before the run. Returns (chain launches, the phase's record)."""
+    GLOBAL_TIMER.samples.clear()
+    torch.cuda.reset_peak_memory_stats()
+    sync()
+    interp_chain.LAUNCHES = 0
+    t0 = time.perf_counter()
+    with SystemProbe() as probe:
+        sys_, rec = run_system(frames, rig, device, torch.float32)
+    sync()
+    seconds = time.perf_counter() - t0
+    launches = interp_chain.LAUNCHES
+    states = [r["state"] for r in rec]
+    n_kf = sys_.atlas.active.n_keyframes()
+    ate = trajectory_ate(sys_, frames, Ts)
+    n_tracked = sum(s == "OK" for s in states[1:])
+    track_ms = {kind: [r["ms"] - r["mapping_ms"] for r in rec[1:] if r["kf"] == kind]
+                for kind in (True, False)}
+    lba_ms = [1e3 * s for s in GLOBAL_TIMER.samples["lm.local_ba"]]
+    out = {
+        "dtype": "float32", "frames": len(rec), "states_ok": states.count("OK"),
+        "keyframes": n_kf, "map_points": sys_.atlas.active.n_map_points(),
+        "ate_m": ate, "ate_pct_of_path": 100 * ate / path_m, "path_m": path_m,
+        "ate_bound_pct": SYSTEM_ATE_PCT,
+        "tracking_ms": {"kf_frames": {"median": pct(track_ms[True], 50),
+                                      "p90": pct(track_ms[True], 90), "n": len(track_ms[True])},
+                        "non_kf_frames": {"median": pct(track_ms[False], 50),
+                                          "p90": pct(track_ms[False], 90),
+                                          "n": len(track_ms[False])}},
+        "frame_ms_median_incl_mapping": pct([r["ms"] for r in rec[1:]], 50),
+        "local_ba_ms_per_kf": {"median": pct(lba_ms, 50), "n": len(lba_ms)},
+        "local_ba_linearizations": probe.lin, "largest_local_ba": probe.lba,
+        "largest_pose_problem": probe.pose, "chain_kernel_launches": launches,
+        "peak_mem_bytes": torch.cuda.max_memory_allocated(), "seconds": seconds,
+        "spans_median_ms": {k: v["median_ms"] for k, v in GLOBAL_TIMER.stats().items()},
+    }
+    emit("system_sequential", **out)
+    if states.count("OK") != len(states):
+        raise AssertionError(f"9a: not every frame OK: {states}")
+    if not ate <= SYSTEM_ATE_PCT / 100 * path_m:
+        raise AssertionError(f"9a: ATE {ate:.4f} m > {SYSTEM_ATE_PCT} % of {path_m:.3f} m")
+    if n_kf < 15:
+        raise AssertionError(f"9a: {n_kf} keyframes < 15")
+    if launches < n_tracked + probe.lin:
+        raise AssertionError(f"9a: {launches} chain launches < {n_tracked} tracked frames "
+                             f"+ {probe.lin} local-BA linearizations")
+    return launches, out
+
+
+def system_f64(frames, rig, device):
+    """9b: float64, the card against the port on the CPU, deterministic
+    algorithms on for the comparison only."""
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        runs = {dev: run_system(frames[:SYSTEM_F64_FRAMES], rig, dev, torch.float64)[1]
+                for dev in (device, "cpu")}
+    finally:
+        torch.use_deterministic_algorithms(False)
+    card, cpu = runs[device], runs["cpu"]
+    worst = {"t_m": 0.0, "r_rad": 0.0}
+    for i, (a, b) in enumerate(zip(card, cpu)):
+        if (a["state"], a["kf_ids"], a["n_mp"]) != (b["state"], b["kf_ids"], b["n_mp"]):
+            raise AssertionError(f"9b frame {i}: card {a['state']} {len(a['kf_ids'])} KF "
+                                 f"{a['n_mp']} MP vs cpu {b['state']} {len(b['kf_ids'])} KF "
+                                 f"{b['n_mp']} MP")
+        worst["t_m"] = max(worst["t_m"], float(np.abs(a["Twb"][:3, 3] - b["Twb"][:3, 3]).max()))
+        worst["r_rad"] = max(worst["r_rad"], rot_angle(a["Twb"][:3, :3], b["Twb"][:3, :3]))
+    emit("system_f64_card_vs_cpu", frames=len(card), keyframes=len(card[-1]["kf_ids"]),
+         map_points=card[-1]["n_mp"], worst=worst, tolerance={"t_m": 1e-8, "r_rad": 1e-8},
+         card_ms_median=pct([r["ms"] for r in card[1:]], 50),
+         cpu_ms_median=pct([r["ms"] for r in cpu[1:]], 50))
+    if not (worst["t_m"] <= 1e-8 and worst["r_rad"] <= 1e-8):
+        raise AssertionError(f"9b: poses differ by {worst}")
+
+
+def system_threaded(frames, rig, Ts, device):
+    """9c: the threaded schedule, float32."""
+    t0 = time.perf_counter()
+    n = SYSTEM_THREADED_FRAMES
+    sys_t, rec_t = run_system(frames[:n], rig, device, torch.float32, threaded=True)
+    deadline = time.time() + 300
+    while sys_t.local_mapper.queue and time.time() < deadline:
+        time.sleep(0.05)
+    sys_t.shutdown()
+    sync()
+    states_t = [r["state"] for r in rec_t]
+    path_t = float(np.linalg.norm(np.diff(Ts[:n, :3, 3], axis=0), axis=1).sum())
+    ate_t = trajectory_ate(sys_t, frames[:n], Ts[:n])
+    emit("system_threaded", frames=len(rec_t), states_ok=states_t.count("OK"),
+         last5=states_t[-5:], keyframes=sys_t.atlas.active.n_keyframes(),
+         n_ba_aborted=sys_t.local_mapper.n_ba_aborted,
+         tracking_ms_median=pct([r["ms"] for r in rec_t[1:]], 50),
+         ate_m=ate_t, ate_pct_of_path=100 * ate_t / path_t, path_m=path_t,
+         seconds=time.perf_counter() - t0)
+    if any(s != "OK" for s in states_t[-5:]):
+        raise AssertionError(f"9c: last 5 states {states_t[-5:]}")
+    if not ate_t <= 0.02 * path_t:
+        raise AssertionError(f"9c: ATE {ate_t:.4f} m > 2 % of {path_t:.3f} m")
+
+
+def phase_system(device, smi):
+    t_phase = time.perf_counter()
+    path = native.build()
+    native._require()
+    emit("system_build", native=str(path))
+    frames, rig, Ts, path_m = system_sequence()
+    launches, out = system_sequential(frames, rig, Ts, path_m, device)
+    system_f64(frames, rig, device)
+    system_threaded(frames, rig, Ts, device)
+    emit("system_summary", seconds=time.perf_counter() - t_phase, card=smi,
+         tracking_ms=out["tracking_ms"], local_ba_ms_per_kf=out["local_ba_ms_per_kf"],
+         chain_kernel_launches=launches, peak_mem_bytes=out["peak_mem_bytes"])
+    return launches
 
 
 def main() -> None:
@@ -676,6 +973,8 @@ def main() -> None:
     t_launches, t_ms, t_per, prof_args = phase_tracking(device)
     emit("tracking_summary", ms=t_ms, per_solve=t_per, card=smi)
     profile_tracking(*prof_args, _build.BUILD_DIR.parent / "profile")
+    # 9. the System entry point
+    s_launches = phase_system(device, smi)
 
     print(smi, flush=True)
     print(json.dumps({"kernels": [{
@@ -683,7 +982,7 @@ def main() -> None:
         "route": "cuda",
         "source": "amcslam_tpu_torch/csrc/interp_chain.cu",
         "replaces": "amcslam_tpu/ops/pallas_chain.py:296",
-        "launches": launches + t_launches,
+        "launches": launches + t_launches + s_launches,
         "max_abs_err": max_abs_err,
         "ms": chain_ms["kernel"],
         "plain_ms": chain_ms["plain"],

@@ -7,6 +7,9 @@ import subprocess
 import sys
 from pathlib import Path
 
+import pytest
+import torch
+
 import amcslam_tpu_torch
 
 PKG_DIR = Path(amcslam_tpu_torch.__file__).resolve().parent
@@ -22,7 +25,10 @@ def test_every_module_imports_without_jax():
     assert {"amcslam_tpu_torch.solver.ba", "amcslam_tpu_torch.ops.interp_chain",
             "amcslam_tpu_torch.convert", "amcslam_tpu_torch._build",
             "amcslam_tpu_torch.solver.pose_solver",
-            "amcslam_tpu_torch.ransac.vel_ransac"} <= set(mods)
+            "amcslam_tpu_torch.ransac.vel_ransac", "amcslam_tpu_torch.ransac.mlpnp",
+            "amcslam_tpu_torch.native", "amcslam_tpu_torch.pipeline.system",
+            "amcslam_tpu_torch.pipeline.tracking", "amcslam_tpu_torch.pipeline.extraction",
+            "amcslam_tpu_torch.pipeline.matcher"} <= set(mods)
     code = (
         "import importlib, sys\n"
         f"for m in {mods!r}:\n"
@@ -45,8 +51,19 @@ def test_no_jax_import_in_port_sources():
 
 
 def test_precision_settings_keep_float32_matmuls_exact():
-    import torch
-
     assert torch.backends.cuda.matmul.allow_tf32 is False
     assert torch.backends.cudnn.allow_tf32 is False
     assert torch.get_float32_matmul_precision() == "highest"
+
+
+def test_system_on_a_missing_cuda_device_raises():
+    """An explicit CUDA device that is not present raises instead of
+    running on the CPU."""
+    from amcslam_tpu_torch.pipeline.system import System
+    from amcslam_tpu_torch.utils.synthetic import make_sequence
+
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    _, rig, _, _ = make_sequence(n_frames=1, n_cams=2, n_lm=10, seed=0)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        System(rig, enable_loop_closing=False, device="cuda")
