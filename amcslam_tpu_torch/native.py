@@ -1,11 +1,12 @@
 """The reference's native (C++) matcher and graph builder, built for the port.
 
 Port of `amcslam_tpu/native/__init__.py:20-162`. There is one C++ source,
-the reference's own `amcslam_tpu/native/graph_builder.cpp`, read by file
-path (importing `amcslam_tpu.native` would run `amcslam_tpu/__init__.py`,
-which imports JAX). It is compiled with g++ into `build/native/` at the
-repository root, named by a hash of the source and the interpreter's
-extension suffix, and imported as the extension module `_graph_builder`.
+the port's own `csrc/graph_builder.cpp`: a byte-for-byte copy of the
+reference's `amcslam_tpu/native/graph_builder.cpp` (tests/test_torch_guards.py
+pins the two equal), so the port builds nothing from the reference's tree.
+It is compiled with g++ into `build/native/` at the repository root, named
+by a hash of the source and the interpreter's extension suffix, and imported
+as the extension module `_graph_builder`.
 
 `available()` is False only when there is no `g++` on the PATH; then the
 matcher takes its torch bit-plane path (pipeline/matcher.py). A compiler that
@@ -25,9 +26,9 @@ from pathlib import Path
 
 import numpy as np
 
-REPO_DIR = Path(__file__).resolve().parent.parent
-SOURCE = REPO_DIR / "amcslam_tpu" / "native" / "graph_builder.cpp"
-BUILD_DIR = REPO_DIR / "build" / "native"
+PKG_DIR = Path(__file__).resolve().parent
+SOURCE = PKG_DIR / "csrc" / "graph_builder.cpp"
+BUILD_DIR = PKG_DIR.parent / "build" / "native"
 CXX_FLAGS = ("-O3", "-march=native", "-shared", "-fPIC", "-std=c++17")
 
 _lock = threading.Lock()

@@ -6,11 +6,19 @@ Per (pose-pair, camera-time) combo it computes `gp_pair_pack` followed by
 `gp_interp_pack` (factors/reprojection.py) and returns
 {"Twb" (S,4,4), "Tbw" (S,4,4), "Q" (S,6,24)} in the reference's layout.
 
-`gp_interp_packs` takes the kernel for CUDA tensors and the plain PyTorch
-version `gp_interp_packs_ref` for CPU tensors; there is no fallback between
-them. In the reference the kernel is opt-in and the XLA op chain is the
-default; here the kernel is the main path for every CUDA tensor, because in
-eager PyTorch the op chain costs several hundred small launches per call.
+Three entries differ only in where a combo's endpoint states come from; the
+kernel reads them in place, so no gathered or expanded copies are made:
+- `gp_interp_packs(T1, v1, T2, v2, t1, t2, t)`: one row per combo;
+- `gp_interp_packs_indexed(T, v, times, i, j, t)`: rows `i[s]` and `j[s]` of
+  one state table (the local BA's combos);
+- `gp_interp_packs_pair(T, v, t1, t2, t)`: one pose pair (rows 0 and 1 of
+  T and v) for every combo (the pose solver's table branch).
+Each takes the kernel for CUDA tensors and its plain PyTorch version (the
+`*_ref` of the same name: the gather or expand, then `gp_interp_packs_ref`)
+for CPU tensors; there is no fallback between them. In the reference the
+kernel is opt-in and the XLA op chain is the default; here the kernel is the
+main path for every CUDA tensor, because in eager PyTorch the op chain costs
+several hundred small launches per call.
 """
 
 from __future__ import annotations
@@ -30,8 +38,12 @@ LAUNCHES = 0
 _LAUNCHES_LOCK = threading.Lock()
 
 _LIB_NAME = "interp_chain"
-_SIGNATURE = [ctypes.c_void_p] * 10 + [ctypes.c_int, ctypes.c_void_p]
+# per endpoint: T, v, times, rows (or NULL), step, table length
+_END = [ctypes.c_void_p] * 4 + [ctypes.c_longlong] * 2
+_SIGNATURE = _END * 2 + [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p]
 _FN = {torch.float32: "interp_chain_f32", torch.float64: "interp_chain_f64"}
+_LIB = None
+_LIB_LOCK = threading.Lock()
 
 
 def gp_interp_packs_ref(T1, v1, T2, v2, t1, t2, t):
@@ -40,32 +52,105 @@ def gp_interp_packs_ref(T1, v1, T2, v2, t1, t2, t):
     return reprojection.gp_interp_pack(pack, T1, v1, t1, t2, t)
 
 
-def _check(T1, v1, T2, v2, t1, t2, t) -> int:
-    if T1.ndim != 3:
-        raise ValueError(f"T1 must be (S,4,4), got {tuple(T1.shape)}")
-    S = T1.shape[0]
-    shapes = {"T1": (S, 4, 4), "v1": (S, 6), "T2": (S, 4, 4), "v2": (S, 6),
-              "t1": (S,), "t2": (S,), "t": (S,)}
-    args = {"T1": T1, "v1": v1, "T2": T2, "v2": v2, "t1": t1, "t2": t2, "t": t}
-    for k, a in args.items():
-        if tuple(a.shape) != shapes[k]:
-            raise ValueError(f"{k} must be {shapes[k]}, got {tuple(a.shape)}")
-        if a.dtype != T1.dtype:
-            raise ValueError(f"{k} has dtype {a.dtype}, T1 has {T1.dtype}")
-        if a.device != T1.device:
-            raise ValueError(f"{k} is on {a.device}, T1 on {T1.device}")
-    if T1.dtype not in _FN:
-        raise ValueError(f"gp_interp_packs takes float32 or float64, got {T1.dtype}")
-    return S
+def gp_interp_packs_indexed_ref(T, v, times, i, j, t):
+    """Plain version of `gp_interp_packs_indexed`: gather, then the chain."""
+    return gp_interp_packs_ref(T[i], v[i], T[j], v[j], times[i], times[j], t)
+
+
+def gp_interp_packs_pair_ref(T, v, t1, t2, t):
+    """Plain version of `gp_interp_packs_pair`: one row per combo, then the
+    chain."""
+    S = t.shape[0]
+    T1, v1, T2, v2, t1, t2 = (a.expand(S, *a.shape).contiguous()
+                              for a in (T[0], v[0], T[1], v[1], t1, t2))
+    return gp_interp_packs_ref(T1, v1, T2, v2, t1, t2, t)
+
+
+def _check(what: str, t, args) -> None:
+    """(name, tensor, shape) triples: shapes, one float dtype and one device
+    for every argument."""
+    if t.dtype not in _FN:
+        raise ValueError(f"{what} takes float32 or float64, got {t.dtype}")
+    dev = t.device
+    for k, a, shape in args:
+        if a.shape != shape:
+            raise ValueError(f"{what}: {k} must be {shape}, got {tuple(a.shape)}")
+        if a.dtype is not t.dtype:
+            raise ValueError(f"{what}: {k} has dtype {a.dtype}, t has {t.dtype}")
+        if a.device != dev:
+            raise ValueError(f"{what}: {k} is on {a.device}, t on {dev}")
+
+
+def _check_rows(what: str, rows, n: int, device) -> None:
+    """(name, index) pairs: int64 on the tables' device; on the CPU also in
+    range (on the card the kernel stops with a device-side assert instead,
+    which costs no device-to-host read)."""
+    for k, r in rows:
+        if r.dtype is not torch.int64:
+            raise ValueError(f"{what}: {k} must be int64, got {r.dtype}")
+        if r.device != device:
+            raise ValueError(f"{what}: {k} is on {r.device}, the tables on {device}")
+        if device.type == "cpu" and r.numel() and not (0 <= int(r.min()) and int(r.max()) < n):
+            raise ValueError(f"{what}: {k} indexes outside the table of {n} rows")
 
 
 def _library() -> ctypes.CDLL:
-    lib = _build.load(_LIB_NAME)
-    for fn in _FN.values():
-        f = getattr(lib, fn)
-        f.argtypes = _SIGNATURE
-        f.restype = ctypes.c_int
-    return lib
+    """The kernel library, built, loaded and bound on first use."""
+    global _LIB
+    if _LIB is None:
+        with _LIB_LOCK:
+            if _LIB is None:
+                lib = _build.load(_LIB_NAME)
+                for fn in _FN.values():
+                    f = getattr(lib, fn)
+                    f.argtypes = _SIGNATURE
+                    f.restype = ctypes.c_int
+                lib.interp_chain_empty.argtypes = [ctypes.c_void_p]
+                lib.interp_chain_empty.restype = ctypes.c_int
+                _LIB = lib
+    return _LIB
+
+
+def _bind(end1, end2, t):
+    """(kernel function, its arguments, the packs it writes) of one launch
+    on the current stream. An endpoint is (T, v, times, rows or None, step,
+    first): combo s reads row rows[s] of the tables, or first + s * step of
+    T and v and s * step of times. The packs are views of one output
+    buffer."""
+    if t.device.type != "cuda":
+        raise ValueError(f"the chain kernel runs on cuda, not {t.device}")
+    S = t.shape[0]
+    args = []
+    for T, v, times, rows, step, first in (end1, end2):
+        ins = (T, v, times) if rows is None else (T, v, times, rows)
+        if not all(a.is_contiguous() for a in ins):
+            raise ValueError("the chain kernel's inputs must be contiguous")
+        size = T.element_size()
+        args += [T.data_ptr() + 16 * size * first, v.data_ptr() + 6 * size * first,
+                 times.data_ptr(), None if rows is None else rows.data_ptr(), step,
+                 T.shape[0] - first]
+    if not t.is_contiguous():
+        raise ValueError("the chain kernel's inputs must be contiguous")
+    out = torch.empty(176 * S, dtype=t.dtype, device=t.device)
+    packs = {"Twb": out.as_strided((S, 4, 4), (16, 4, 1), 0),
+             "Tbw": out.as_strided((S, 4, 4), (16, 4, 1), 16 * S),
+             "Q": out.as_strided((S, 6, 24), (144, 24, 1), 32 * S)}
+    args += [t.data_ptr(), out.data_ptr(), S, torch.cuda.current_stream(t.device).cuda_stream]
+    return getattr(_library(), _FN[t.dtype]), args, packs
+
+
+def _launch(end1, end2, t):
+    """One kernel launch (see `_bind`); returns the packs."""
+    global LAUNCHES
+    fn, args, packs = _bind(end1, end2, t)
+    if t.shape[0] == 0:
+        return packs
+    rc = fn(*args)
+    if rc != 0:
+        raise RuntimeError(f"interp_chain kernel launch failed: CUDA error {rc}")
+    with _LAUNCHES_LOCK:
+        LAUNCHES += 1
+    return packs
 
 
 def gp_interp_packs(T1, v1, T2, v2, t1, t2, t):
@@ -74,28 +159,44 @@ def gp_interp_packs(T1, v1, T2, v2, t1, t2, t):
 
     CPU tensors run the plain version; CUDA tensors launch the kernel on the
     current stream (inputs must be contiguous) or raise."""
-    global LAUNCHES
-    S = _check(T1, v1, T2, v2, t1, t2, t)
-    if T1.device.type == "cpu":
+    S = t.shape[0] if t.ndim == 1 else -1
+    _check("gp_interp_packs", t,
+           (("T1", T1, (S, 4, 4)), ("v1", v1, (S, 6)), ("T2", T2, (S, 4, 4)),
+            ("v2", v2, (S, 6)), ("t1", t1, (S,)), ("t2", t2, (S,)), ("t", t, (S,))))
+    if t.device.type == "cpu":
         return gp_interp_packs_ref(T1, v1, T2, v2, t1, t2, t)
-    if T1.device.type != "cuda":
-        raise ValueError(f"gp_interp_packs runs on cpu or cuda, not {T1.device}")
-    ins = (T1, v1, T2, v2, t1, t2, t)
-    if not all(a.is_contiguous() for a in ins):
-        raise ValueError("gp_interp_packs: CUDA inputs must be contiguous")
-    opts = {"dtype": T1.dtype, "device": T1.device}
-    out = {"Twb": torch.empty((S, 4, 4), **opts),
-           "Tbw": torch.empty((S, 4, 4), **opts),
-           "Q": torch.empty((S, 6, 24), **opts)}
-    if S == 0:
-        return out
-    fn = getattr(_library(), _FN[T1.dtype])
-    stream = torch.cuda.current_stream(T1.device).cuda_stream
-    rc = fn(*(a.data_ptr() for a in ins),
-            out["Twb"].data_ptr(), out["Tbw"].data_ptr(), out["Q"].data_ptr(),
-            S, stream)
-    if rc != 0:
-        raise RuntimeError(f"interp_chain kernel launch failed: CUDA error {rc}")
-    with _LAUNCHES_LOCK:
-        LAUNCHES += 1
-    return out
+    return _launch((T1, v1, t1, None, 1, 0), (T2, v2, t2, None, 1, 0), t)
+
+
+def gp_interp_packs_indexed(T, v, times, i, j, t):
+    """Interp packs of the combos (T[i[s]], T[j[s]], t[s]): T (N,4,4), v (N,6),
+    times (N,) state tables, i/j (S,) int64 rows, t (S,) query times.
+
+    CPU tensors run `gp_interp_packs_indexed_ref`; CUDA tensors launch the
+    kernel, which reads the rows in place, or raise."""
+    S = t.shape[0] if t.ndim == 1 else -1
+    N = T.shape[0] if T.ndim == 3 else -1
+    _check("gp_interp_packs_indexed", t,
+           (("T", T, (N, 4, 4)), ("v", v, (N, 6)), ("times", times, (N,)), ("t", t, (S,))))
+    for k, r in (("i", i), ("j", j)):
+        if r.shape != (S,):
+            raise ValueError(f"gp_interp_packs_indexed: {k} must be {(S,)}, got {tuple(r.shape)}")
+    _check_rows("gp_interp_packs_indexed", (("i", i), ("j", j)), N, t.device)
+    if t.device.type == "cpu":
+        return gp_interp_packs_indexed_ref(T, v, times, i, j, t)
+    return _launch((T, v, times, i, 0, 0), (T, v, times, j, 0, 0), t)
+
+
+def gp_interp_packs_pair(T, v, t1, t2, t):
+    """Interp packs of one pose pair at S query times: T (2,4,4) and v (2,6)
+    the pair's poses and twists (rows 0 and 1), t1/t2 () their times, t (S,).
+
+    CPU tensors run `gp_interp_packs_pair_ref`; CUDA tensors launch the
+    kernel, which reads the pair in place, or raise."""
+    S = t.shape[0] if t.ndim == 1 else -1
+    _check("gp_interp_packs_pair", t,
+           (("T", T, (2, 4, 4)), ("v", v, (2, 6)), ("t1", t1, ()), ("t2", t2, ()),
+            ("t", t, (S,))))
+    if t.device.type == "cpu":
+        return gp_interp_packs_pair_ref(T, v, t1, t2, t)
+    return _launch((T, v, t1, None, 0, 0), (T, v, t2, None, 0, 1), t)

@@ -15,7 +15,8 @@ abort-segmented variants, with
 
 Residuals and Jacobians evaluate as one batch per edge family; the GP
 interpolation chain runs once per unique (structure, timestamp) combo
-through `ops/interp_chain.gp_interp_packs` (the CUDA kernel on the card);
+through `ops/interp_chain.gp_interp_packs_indexed` (the CUDA kernel on the
+card, reading the endpoint states from the state tables by index);
 the pose Hessian assembles from 12x12 unit blocks; the Schur complement
 Hpp - W Hll^-1 W^T is two dense contractions; the reduced system is solved
 by Cholesky.
@@ -177,12 +178,10 @@ def _combo_ends(data: LocalBAData, sid_cols, it_sid):
 
 def _interp_packs(data: LocalBAData, state: BAState, sid_cols, it_sid, it_t):
     """Per-(structure, timestamp) interp packs {"Twb", "Tbw", "Q"}: the whole
-    GP chain once per unique combo, gathered per edge by the caller."""
+    GP chain once per unique combo, gathered per edge by the caller. The
+    kernel reads each combo's endpoint states from the state tables by index."""
     i_u, j_u = _combo_ends(data, sid_cols, it_sid)
-    return interp_chain.gp_interp_packs(
-        state.T[i_u], state.v[i_u], state.T[j_u], state.v[j_u],
-        data.times[i_u], data.times[j_u], it_t,
-    )
+    return interp_chain.gp_interp_packs_indexed(state.T, state.v, data.times, i_u, j_u, it_t)
 
 
 def _interp_poses(data: LocalBAData, state: BAState, sid_cols, it_sid, it_t):

@@ -18,7 +18,7 @@ Outlier sets are per-edge masks over padded arrays, as in the reference.
 The async-camera edges take one of two branches, as in the reference:
   * table (`mg_it`/`it_t` set, as the pipeline's extraction builds it): the
     GP chain runs once per unique interpolation time through
-    `ops/interp_chain.gp_interp_packs` (the CUDA kernel on the card) and is
+    `ops/interp_chain.gp_interp_packs_pair` (the CUDA kernel on the card) and is
     gathered per edge with `index_select`;
   * per edge: `factors/reprojection.mono_gp_residual_jac` per edge.
 """
@@ -92,12 +92,9 @@ def interp_table(mg_t: np.ndarray):
 
 def _interp_packs(data: PoseGPData, state: PoseState):
     """The table branch's packs {"Twb", "Tbw", "Q"} (U rows): the single pose
-    pair expanded to one contiguous row per unique time (the kernel reads
-    row-major (U,4,4)/(U,6)/(U,) inputs)."""
-    U = data.it_t.shape[0]
-    T1, v1, T2, v2, t1, t2 = (a.expand(U, *a.shape).contiguous() for a in (
-        state.T[0], state.v[0], state.T[1], state.v[1], data.t_prev, data.t_cur))
-    return interp_chain.gp_interp_packs(T1, v1, T2, v2, t1, t2, data.it_t)
+    pair at every unique time (the kernel reads the pair in place)."""
+    return interp_chain.gp_interp_packs_pair(state.T, state.v, data.t_prev, data.t_cur,
+                                             data.it_t)
 
 
 def _mono_gp_all(data: PoseGPData, state: PoseState):

@@ -9,10 +9,13 @@ result line):
   1. device  — a CUDA device is required (there is no CPU path);
   2. build   — nvcc builds csrc/interp_chain.cu into build/kernels/;
   3. kernel  — the GP-interpolation-chain kernel against its plain PyTorch
-               version on the card: float64 to max-rel 1e-12, float32 within
-               max(5e-5, 10x the plain float32 distance from float64), and
-               batches of 1, 130 and 1024 combos agree on their prefix bit
-               for bit;
+               version on the card at S = 1, 6, 130, 256, 1024, 2048 and
+               8192 combos (one block of 8 combos to 1,024 blocks): float64 to max-rel
+               1e-12, float32 within max(5e-5, 10x the plain float32
+               distance from float64); heads of 1, 6 and 130 combos equal
+               the full batch's bit for bit; the indexed entry equals
+               `gp_interp_packs` bit for bit; the pair entry (a tracked
+               frame's pose solve, S = 6) likewise;
   4. slice   — `local_gp_ba` at the headline shape of the reference's bench
                (50 KF, 5000 landmarks, 6 cameras, 4 obs/landmark, 2 GP obs/
                landmark, seed 0, float32) through the kernel: ok, chi2
@@ -22,8 +25,8 @@ result line):
   5. timing  — ms per chained LM iteration (linearize -> solve -> retract ->
                chi2, lambda = 1; 3 warm-up + median of 5 blocks of 20), once
                through the kernel and once with the plain chain bound in, in
-               the order plain, kernel, kernel, plain; and the chain alone at
-               the headline's 1024 combos;
+               the order plain, kernel, kernel, plain; and the chain's entry
+               (host included) at the headline's 1024 combos;
   6. profile — torch.profiler over 5 LM iterations: device time and busy
                share per iteration, kernel launches per iteration, and a
                table by kernel in build/profile/lm_iteration_profile.txt;
@@ -54,7 +57,26 @@ result line):
                deterministic algorithms on: the same states, keyframe ids and
                map-point counts, poses to 1e-8 m / 1e-8 rad. 9c: the threaded
                schedule, float32, the first 30 frames: OK in the last 5, a
-               finite trajectory, ATE <= 2 % of the path.
+               finite trajectory, ATE <= 2 % of the path. 9a also counts the
+               chain's launches by entry and size.
+ 10. sizes  — the chain at the sizes 9a launched it: a tracked frame's pose
+               pair (S = U = 6), the largest local-BA window's combos (the
+               live lba.Um bucket), the headline's 1024 combos in float32 and
+               float64, on the inputs those calls had: kernel vs plain
+               (float64 1e-12 on the live combos, the derived tolerance of
+               `check_padded` on the padded ones, the float32 envelope), the
+               entry bit-equal to `gp_interp_packs` on gathered rows; then
+               device ms per launch (CUDA events around 200 launches queued
+               behind a spin kernel, so the host's launch cost is hidden) of
+               the kernel, the kernel on gathered rows and an empty kernel of
+               the same library (the launch floor), in turns; host-inclusive
+               ms of the entry and of the plain version; the bound at each
+               size. It runs after 9 because the live lba.Um is known only
+               there.
+
+The kernels line keeps `ms` and `plain_ms` as phase 5 measures them (the
+entry and the plain version at the headline's 1024 combos, host included);
+phase 10's device time per launch at that size is `device_ms`.
 
 Phase 8's timing runs 3 blocks of 10 solves (5 of 20 before phase 9 was
 added) and 9c runs 30 of the 60 frames, so that the whole run stays near
@@ -88,6 +110,7 @@ from amcslam_tpu_torch.utils.io import ate_rmse
 from amcslam_tpu_torch.utils.synthetic import (make_local_ba_problem_numpy,
                                                make_pose_problem_numpy, make_sequence)
 from amcslam_tpu_torch.utils.timing import GLOBAL_TIMER
+from tools.time_chain_kernel import time_device
 
 HEADLINE = dict(n_kf=50, n_fixed=1, n_lm=5000, n_cams=6, obs_per_lm=4,
                 gpobs_per_lm=2, noise_px=0.5, seed=0)
@@ -99,6 +122,8 @@ RANSAC_HYPOTHESES = 23  # Tracking.cc:2029
 RANSAC_THRESHOLD = 3.0
 RANSAC_MIN_MATCH = 30
 KEYS = ("Twb", "Tbw", "Q")
+# from one block of 8 combos (csrc/interp_chain.cu) to several blocks an SM
+CHECK_SIZES = (1, 6, 130, 256, 1024, 2048, 8192)
 CHAIN_ARGS = ("T1", "v1", "T2", "v2", "t1", "t2", "t")
 # tests/test_system.py:21-22; the rig of 5 async monos + a stereo camera is
 # the AMV width (tests/test_e2e_scenarios.py:63-66)
@@ -176,23 +201,81 @@ def check_f32(args64: tuple) -> dict:
     return out
 
 
+def assert_equal_packs(what, got, want) -> None:
+    for k in KEYS:
+        if not torch.equal(got[k], want[k]):
+            raise AssertionError(f"{what}: {k} differs")
+
+
+def check_f64(what, got, ref) -> float:
+    err = max(max_rel(got[k], ref[k]) for k in KEYS)
+    if not err <= 1e-12:
+        raise AssertionError(f"f64 {what}: kernel vs plain {err:.3e} > 1e-12")
+    return err
+
+
+def table_form(args: tuple) -> tuple:
+    """Per-row chain inputs as the indexed entry takes them: both endpoints'
+    rows in one shuffled state table, and the rows of each combo."""
+    T1, v1, T2, v2, t1, t2, t = args
+    S = t.shape[0]
+    perm = torch.randperm(2 * S, generator=torch.Generator().manual_seed(S)).to(t.device)
+    inv = torch.empty_like(perm)
+    inv[perm] = torch.arange(2 * S, device=t.device)
+    T, v, times = (torch.cat([a, b])[perm].contiguous() for a, b in ((T1, T2), (v1, v2), (t1, t2)))
+    return T, v, times, inv[:S].contiguous(), inv[S:].contiguous(), t
+
+
+def gathered(T, v, times, i, j, t) -> tuple:
+    """The indexed entry's inputs as per-row inputs of `gp_interp_packs`."""
+    return (T[i].contiguous(), v[i].contiguous(), T[j].contiguous(), v[j].contiguous(),
+            times[i].contiguous(), times[j].contiguous(), t)
+
+
+def expanded(T, v, t1, t2, t) -> tuple:
+    """The pair entry's inputs as per-row inputs of `gp_interp_packs`."""
+    S = t.shape[0]
+    return tuple(a.expand(S, *a.shape).contiguous()
+                 for a in (T[0], v[0], T[1], v[1], t1, t2)) + (t,)
+
+
+def f32_summary(rec: dict) -> dict:
+    """check_f32's record as the worst kernel and plain distances over the
+    three outputs."""
+    return {"f32_kernel_vs_f64": max(rec[k]["kernel_vs_f64"] for k in KEYS),
+            "f32_plain_vs_f64": max(rec[k]["plain32_vs_f64"] for k in KEYS)}
+
+
 def phase_kernel(device) -> None:
     cases = {}
     for case in ("generic", "near_pi", "tiny"):
-        args = random_case(3, 1024, case, device)
-        got = interp_chain.gp_interp_packs(*args)
-        ref = interp_chain.gp_interp_packs_ref(*args)
-        errs = {k: max_rel(got[k], ref[k]) for k in KEYS}
-        if not max(errs.values()) <= 1e-12:
-            raise AssertionError(f"f64 {case}: kernel vs plain {errs}")
-        for n in (1, 130):
-            head = interp_chain.gp_interp_packs(*(a[:n] for a in args))
-            for k in KEYS:
-                if not torch.equal(head[k], got[k][:n]):
-                    raise AssertionError(f"{case}: S={n} prefix differs in {k}")
-        cases[case] = {"f64_max_rel": max(errs.values()), "f32": check_f32(args)}
+        per = {}
+        for n in CHECK_SIZES:
+            args = random_case(3 + n, n, case, device)
+            got = interp_chain.gp_interp_packs(*args)
+            err = check_f64(f"{case} S={n}", got, interp_chain.gp_interp_packs_ref(*args))
+            for h in (1, 6, 130):
+                if h < n:
+                    head = interp_chain.gp_interp_packs(*(a[:h] for a in args))
+                    assert_equal_packs(f"{case}: S={h} head of S={n}", head,
+                                       {k: got[k][:h] for k in KEYS})
+            assert_equal_packs(f"{case} S={n}: indexed vs gp_interp_packs",
+                               interp_chain.gp_interp_packs_indexed(*table_form(args)), got)
+            per[n] = {"f64_max_rel": err, **f32_summary(check_f32(args))}
+        # the pose solver's form: the first combo's pair at 6 times in its interval
+        T1, v1, T2, v2, t1, t2, _ = random_case(3, 1, case, device)
+        t = t1[0] + torch.linspace(0.0, 1.0, 6, dtype=t1.dtype, device=device) * (t2[0] - t1[0])
+        pair = (torch.stack([T1[0], T2[0]]), torch.stack([v1[0], v2[0]]), t1[0], t2[0],
+                t.contiguous())
+        got = interp_chain.gp_interp_packs_pair(*pair)
+        assert_equal_packs(f"{case}: pair vs gp_interp_packs", got,
+                           interp_chain.gp_interp_packs(*expanded(*pair)))
+        per["pair_6"] = {"f64_max_rel": check_f64(f"{case} pair", got,
+                                                  interp_chain.gp_interp_packs_pair_ref(*pair)),
+                         **f32_summary(check_f32(expanded(*pair)))}
+        cases[case] = per
     sync()
-    emit("kernel", S=[1, 130, 1024], tol_f64=1e-12, cases=cases)
+    emit("kernel", S=list(CHECK_SIZES), heads=[1, 6, 130], tol_f64=1e-12, cases=cases)
 
 
 # ---------------------------------------------------------------------------
@@ -336,8 +419,8 @@ def phase_timing(data, state0, chain):
     runs = []
     for variant in ("plain", "kernel", "kernel", "plain"):
         if variant == "plain":
-            with mock.patch.object(interp_chain, "gp_interp_packs",
-                                   interp_chain.gp_interp_packs_ref):
+            with mock.patch.object(interp_chain, "gp_interp_packs_indexed",
+                                   interp_chain.gp_interp_packs_indexed_ref):
                 ms, samples, chi = time_lm_iteration(problem, state0, lam)
         else:
             ms, samples, chi = time_lm_iteration(problem, state0, lam)
@@ -707,10 +790,32 @@ class SystemProbe:
         self.lin = 0
         self.lba = {}
         self.pose = {}
+        self.chain_calls = {}   # "entry S=n" -> calls (one launch each on the card)
+        self.chain_args = {}    # entry -> (S, inputs) of its largest call
+        self.lba_combos = (-1,)  # (U, data, state, sid_cols, it_sid, it_t), largest U
 
     def __enter__(self):
         make, ext_lba = ba.make_ba_problem, local_mapping.extract_local_ba
         ext_pose = tracking.extract_pose_problem
+        entries = {"indexed": interp_chain.gp_interp_packs_indexed,
+                   "pair": interp_chain.gp_interp_packs_pair}
+        packs = ba._interp_packs
+
+        def lba_packs(data, state, sid_cols, it_sid, it_t):
+            if it_t.shape[0] >= self.lba_combos[0]:
+                self.lba_combos = (it_t.shape[0], data, state, sid_cols, it_sid, it_t)
+            return packs(data, state, sid_cols, it_sid, it_t)
+
+        def sized(name):
+            def call(*args):
+                S = int(args[-1].shape[0])
+                key = f"{name} S={S}"
+                if S:
+                    self.chain_calls[key] = self.chain_calls.get(key, 0) + 1
+                if S >= self.chain_args.get(name, (-1,))[0]:
+                    self.chain_args[name] = (S, args)
+                return entries[name](*args)
+            return call
 
         def counting_make(*args, **kw):
             problem = make(*args, **kw)
@@ -729,7 +834,8 @@ class SystemProbe:
                 self.lba = {"real": {**real, "edges": real["Em"] + real["Es"]},
                             "padded": {"K": data.n_poses, "Em": int(data.mg_obs.shape[0]),
                                        "Es": int(data.st_obs.shape[0]),
-                                       "L": int(state.X.shape[0])}}
+                                       "L": int(state.X.shape[0]),
+                                       "U": int(data.mg_it_t.shape[0])}}
             return data, state, h
 
         def pose(*args, **kw):
@@ -743,7 +849,10 @@ class SystemProbe:
 
         self._patches = [mock.patch.object(ba, "make_ba_problem", counting_make),
                          mock.patch.object(local_mapping, "extract_local_ba", lba),
-                         mock.patch.object(tracking, "extract_pose_problem", pose)]
+                         mock.patch.object(tracking, "extract_pose_problem", pose),
+                         mock.patch.object(ba, "_interp_packs", lba_packs),
+                         *(mock.patch.object(interp_chain, f"gp_interp_packs_{name}", sized(name))
+                           for name in entries)]
         for p in self._patches:
             p.start()
         return self
@@ -854,6 +963,7 @@ def system_sequential(frames, rig, Ts, path_m, device):
         "local_ba_ms_per_kf": {"median": pct(lba_ms, 50), "n": len(lba_ms)},
         "local_ba_linearizations": probe.lin, "largest_local_ba": probe.lba,
         "largest_pose_problem": probe.pose, "chain_kernel_launches": launches,
+        "chain_calls_by_size": probe.chain_calls,
         "peak_mem_bytes": torch.cuda.max_memory_allocated(), "seconds": seconds,
         "spans_median_ms": {k: v["median_ms"] for k, v in GLOBAL_TIMER.stats().items()},
     }
@@ -867,7 +977,9 @@ def system_sequential(frames, rig, Ts, path_m, device):
     if launches < n_tracked + probe.lin:
         raise AssertionError(f"9a: {launches} chain launches < {n_tracked} tracked frames "
                              f"+ {probe.lin} local-BA linearizations")
-    return launches, out
+    if launches != sum(probe.chain_calls.values()):
+        raise AssertionError(f"9a: {launches} chain launches, {probe.chain_calls} entry calls")
+    return launches, out, probe
 
 
 def system_f64(frames, rig, device):
@@ -927,13 +1039,174 @@ def phase_system(device, smi):
     native._require()
     emit("system_build", native=str(path))
     frames, rig, Ts, path_m = system_sequence()
-    launches, out = system_sequential(frames, rig, Ts, path_m, device)
+    launches, out, probe = system_sequential(frames, rig, Ts, path_m, device)
     system_f64(frames, rig, device)
     system_threaded(frames, rig, Ts, device)
     emit("system_summary", seconds=time.perf_counter() - t_phase, card=smi,
          tracking_ms=out["tracking_ms"], local_ba_ms_per_kf=out["local_ba_ms_per_kf"],
-         chain_kernel_launches=launches, peak_mem_bytes=out["peak_mem_bytes"])
-    return launches
+         chain_kernel_launches=launches, chain_calls_by_size=out["chain_calls_by_size"],
+         peak_mem_bytes=out["peak_mem_bytes"])
+    return launches, probe
+
+
+# ---------------------------------------------------------------------------
+# phase 10: the chain at the sizes the System launches it
+# ---------------------------------------------------------------------------
+
+HBM_BYTES_PER_S = 3.35e12                                # H100 SXM, NVIDIA's data sheet
+PEAK_FLOPS = {torch.float32: 67e12, torch.float64: 34e12}  # outside the tensor cores
+# FLOP per combo, counted from csrc/interp_chain.cu: 40 3x3 products (45 FLOP
+# each), 12 matrix-vector products (15 each), 6 series matrices I + aW + bW^2
+# (36 each) and ~400 FLOP of scalings, sums and scalars; the log's and the two
+# coefficient sets' sqrt, sin, cos, atan2 and divisions (~100) count one each
+FLOP_PER_COMBO = 2700
+ROW_VALUES = 12 + 6 + 1     # a state row the kernel needs: (R|t), v, time
+OUT_VALUES = 16 + 16 + 144  # Twb, Tbw, Q
+
+
+def chain_bound(form: str, args: tuple) -> dict:
+    """The least time the card could take for one call: every input value the
+    combos need read once (distinct state rows, the query times, the int64
+    indices), every output written once, over HBM bandwidth; the FLOP over the
+    peak rate of the dtype; the larger of the two."""
+    t = args[-1]
+    S, esize = t.shape[0], t.element_size()
+    if form == "pair":
+        rows, index_bytes = 2, 0
+    elif form == "indexed":
+        rows, index_bytes = int(torch.unique(torch.cat([args[3], args[4]])).numel()), 16 * S
+    else:
+        rows, index_bytes = 2 * S, 0
+    nbytes = esize * (ROW_VALUES * rows + S + OUT_VALUES * S) + index_bytes
+    flop = FLOP_PER_COMBO * S
+    ms_bytes, ms_flop = nbytes / HBM_BYTES_PER_S * 1e3, flop / PEAK_FLOPS[t.dtype] * 1e3
+    return {"bound_ms": max(ms_bytes, ms_flop),
+            "bound_by": "bytes" if ms_bytes >= ms_flop else "operations",
+            "bytes": nbytes, "flop": flop}
+
+
+def checked(fn, args):
+    def launch():
+        rc = fn(*args)
+        if rc != 0:
+            raise RuntimeError(f"chain kernel launch failed: CUDA error {rc}")
+    return launch
+
+
+def indexed_inputs(data, state, sid_cols, it_sid, it_t) -> tuple:
+    """The indexed entry's inputs as `ba._interp_packs` builds them."""
+    i_u, j_u = ba._combo_ends(data, sid_cols, it_sid)
+    return state.T, state.v, data.times, i_u, j_u, it_t
+
+
+ENTRIES = {
+    "pair": (interp_chain.gp_interp_packs_pair, interp_chain.gp_interp_packs_pair_ref, expanded),
+    "indexed": (interp_chain.gp_interp_packs_indexed, interp_chain.gp_interp_packs_indexed_ref,
+                gathered),
+}
+
+
+def ends(form, args):
+    """The kernel's endpoints (`interp_chain._bind`) of an entry's inputs."""
+    if form == "pair":
+        T, v, t1, t2, _ = args
+        return (T, v, t1, None, 0, 0), (T, v, t2, None, 0, 1)
+    if form == "indexed":
+        T, v, times, i, j, _ = args
+        return (T, v, times, i, 0, 0), (T, v, times, j, 0, 0)
+    T1, v1, T2, v2, t1, t2, _ = args
+    return (T1, v1, t1, None, 1, 0), (T2, v2, t2, None, 1, 0)
+
+
+PAD_PERTURB_ULPS = 4   # relative input perturbation of check_padded, in float64 eps
+PAD_TOL_FACTOR = 10.0  # the float32 envelope's factor over the plain version's own error
+
+
+def check_padded(name, got64, ref64, args64, live, ref) -> dict:
+    """The padded combos' float64 check. The local BA pads its combo table
+    to the bucket with the dump combo (structure 0 at query time 0, so far
+    outside its interval [times[i], times[j]]: s = (t - t_i)/(t_j - t_i) is
+    large and negative), whose edges are masked. The extrapolated Hermite
+    chain is ill-conditioned there, so float64 evaluations of it that round
+    in a different order differ by more than 1e-12: the port's plain version
+    and the reference's own JAX and Pallas paths do
+    (tests/test_torch_interp_indexed.py).
+    The tolerance is derived from the plain version's own sensitivity: its
+    change when every float input moves by 4 ulps (random signs, seed 0),
+    times 10, as the float32 envelope takes 10x the plain version's error;
+    never below 1e-12."""
+    gen = torch.Generator(device=args64[-1].device).manual_seed(0)
+    eps = torch.finfo(torch.float64).eps
+
+    def perturb(a):
+        if not a.is_floating_point():
+            return a
+        sign = torch.randint(0, 2, a.shape, generator=gen, device=a.device).to(a.dtype) * 2 - 1
+        return a * (1 + PAD_PERTURB_ULPS * eps * sign)
+
+    moved = ref(*(perturb(a) for a in args64))
+    pad = ~live
+    sens = max(max_rel(moved[k][pad], ref64[k][pad]) for k in KEYS)
+    tol = max(1e-12, PAD_TOL_FACTOR * sens)
+    err = max(max_rel(got64[k][pad], ref64[k][pad]) for k in KEYS)
+    if not err <= tol:
+        raise AssertionError(f"f64 {name} padded combos: kernel vs plain {err:.3e} > {tol:.3e}")
+    return {"f64_max_rel_padded": err, "f64_padded_tol": tol, "f64_padded_plain_sensitivity": sens}
+
+
+def extrapolation(form, args, live) -> float:
+    """The largest |s| = |t - t_i| / (t_j - t_i) of the padded combos."""
+    if form != "indexed" or bool(live.all()):
+        return 0.0
+    _, _, times, i, j, t = args
+    s = (t - times[i]) / (times[j] - times[i])
+    return float(s[~live].abs().max())
+
+
+def phase_sizes(size_inputs: dict) -> dict:
+    """Phase 10 on {name: (form, inputs, live)}; returns the record of each
+    size. `live` masks the combos the caller uses; the padded ones are held
+    to `check_padded`'s tolerance."""
+    empty = checked(interp_chain._library().interp_chain_empty,
+                    [torch.cuda.current_stream().cuda_stream])
+    out = {}
+    for name, (form, args, live) in size_inputs.items():
+        entry, ref, as_rows = ENTRIES[form]
+        rows = as_rows(*args)
+        got = entry(*args)
+        assert_equal_packs(f"{name}: {form} entry vs gp_interp_packs", got,
+                           interp_chain.gp_interp_packs(*rows))
+        S = int(args[-1].shape[0])
+        live = torch.ones(S, dtype=torch.bool, device=args[-1].device) if live is None else live
+        rec = {"S": S, "live_combos": int(live.sum()), "dtype": str(args[-1].dtype).split(".")[-1],
+               "form": form}
+        args64 = tuple(a.double() if a.is_floating_point() else a for a in args)
+        got64, ref64 = entry(*args64), ref(*args64)
+        rec["f64_max_rel"] = check_f64(name, {k: got64[k][live] for k in KEYS},
+                                       {k: ref64[k][live] for k in KEYS})
+        if not bool(live.all()):
+            rec.update(check_padded(name, got64, ref64, args64, live, ref),
+                       padded_max_abs_s=extrapolation(form, args64, live))
+        if args[-1].dtype == torch.float32:
+            rec.update(f32_summary(check_f32(tuple(a[live].double() for a in rows))))
+        fn, kargs, _ = interp_chain._bind(*ends(form, args), args[-1])
+        fn_r, kargs_r, _ = interp_chain._bind(*ends("rows", rows), rows[-1])
+        launches = {"kernel": checked(fn, kargs), "kernel_rows": checked(fn_r, kargs_r),
+                    "empty": empty}
+        order = ["kernel", "kernel_rows", "empty", "empty", "kernel_rows", "kernel"]
+        ms = {k: [] for k in launches}
+        for variant in order:
+            ms[variant].append(time_device(launches[variant]))
+        med = {k: statistics.median(v) for k, v in ms.items()}
+        rec.update({"device_ms": med["kernel"], "device_ms_on_gathered_rows": med["kernel_rows"],
+                    "launch_floor_ms": med["empty"],
+                    "ms_turns": ms, "order": order,
+                    "entry_ms": time_chain(entry, args),
+                    "plain_ms": time_chain(ref, args, n=20),
+                    **chain_bound(form, args)})
+        emit("sizes", name=name, **rec)
+        out[name] = rec
+    return out
 
 
 def main() -> None:
@@ -974,7 +1247,23 @@ def main() -> None:
     emit("tracking_summary", ms=t_ms, per_solve=t_per, card=smi)
     profile_tracking(*prof_args, _build.BUILD_DIR.parent / "profile")
     # 9. the System entry point
-    s_launches = phase_system(device, smi)
+    s_launches, probe = phase_system(device, smi)
+
+    # 10. the chain at the System's sizes
+    _, d9, s9, sid9, it_sid9, it_t9 = probe.lba_combos
+    headline = indexed_inputs(data, state0, data.mg_sid_cols, data.mg_it_sid, data.mg_it_t)
+    sizes = phase_sizes({
+        "pose_pair": ("pair", probe.chain_args["pair"][1], None),
+        "local_ba_live_U": ("indexed", indexed_inputs(d9, s9, sid9, it_sid9, it_t9),
+                            it_sid9 != 0),
+        "headline_1024": ("indexed", headline, data.mg_it_sid != 0),
+        "headline_1024_f64": ("indexed", tuple(a.double() if a.is_floating_point() else a
+                                               for a in headline), data.mg_it_sid != 0),
+    })
+    head = sizes["headline_1024"]
+    emit("sizes_summary", card=smi, device_ms={k: v["device_ms"] for k, v in sizes.items()},
+         launch_floor_ms={k: v["launch_floor_ms"] for k, v in sizes.items()},
+         bound_ms={k: v["bound_ms"] for k, v in sizes.items()})
 
     print(smi, flush=True)
     print(json.dumps({"kernels": [{
@@ -986,6 +1275,14 @@ def main() -> None:
         "max_abs_err": max_abs_err,
         "ms": chain_ms["kernel"],
         "plain_ms": chain_ms["plain"],
+        "bound_ms": head["bound_ms"],
+        "bound_by": head["bound_by"],
+        "library_ms": None,
+        "device_ms": head["device_ms"],
+        "launch_floor_ms": head["launch_floor_ms"],
+        "sizes": [{k: v[k] for k in ("S", "dtype", "form", "device_ms", "launch_floor_ms",
+                                     "bound_ms", "bound_by", "entry_ms", "plain_ms")}
+                  for v in sizes.values()],
     }]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",

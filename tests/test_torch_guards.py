@@ -1,6 +1,8 @@
-"""Guards of the PyTorch port: it never imports JAX or the JAX package, so
-it runs where JAX is not installed."""
+"""Guards of the PyTorch port: it never imports JAX or the JAX package, and
+builds nothing from the JAX package's tree, so it runs where neither is
+installed."""
 
+import ast
 import pkgutil
 import re
 import subprocess
@@ -14,6 +16,11 @@ import amcslam_tpu_torch
 
 PKG_DIR = Path(amcslam_tpu_torch.__file__).resolve().parent
 REPO = PKG_DIR.parent
+
+
+def port_sources():
+    """The port's Python files: the package, chip_smoke.py and tools/."""
+    return [*PKG_DIR.rglob("*.py"), REPO / "chip_smoke.py", *(REPO / "tools").glob("*.py")]
 
 
 def all_modules():
@@ -46,7 +53,7 @@ def test_every_module_imports_without_jax():
 def test_no_jax_import_in_port_sources():
     pattern = re.compile(r"^\s*(import\s+jax|from\s+jax|import\s+amcslam_tpu\b|from\s+amcslam_tpu\b)",
                          re.M)
-    for path in list(PKG_DIR.rglob("*.py")) + [REPO / "chip_smoke.py"]:
+    for path in port_sources():
         assert not pattern.search(path.read_text()), path
 
 
@@ -67,3 +74,42 @@ def test_system_on_a_missing_cuda_device_raises():
     _, rig, _, _ = make_sequence(n_frames=1, n_cams=2, n_lm=10, seed=0)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         System(rig, enable_loop_closing=False, device="cuda")
+
+
+def test_native_source_lies_inside_the_port():
+    from amcslam_tpu_torch import native
+
+    assert PKG_DIR in native.SOURCE.resolve().parents
+    assert native.SOURCE.is_file()
+
+
+def test_native_source_is_a_copy_of_the_reference():
+    from amcslam_tpu_torch import native
+
+    ref = REPO / "amcslam_tpu" / "native" / "graph_builder.cpp"
+    assert native.SOURCE.read_bytes() == ref.read_bytes()
+
+
+def _code_strings(tree):
+    """String constants of a module that are not docstrings."""
+    docs = set()
+    for node in ast.walk(tree):
+        if isinstance(node, (ast.Module, ast.ClassDef, ast.FunctionDef, ast.AsyncFunctionDef)):
+            body = node.body
+            if body and isinstance(body[0], ast.Expr) and isinstance(body[0].value, ast.Constant):
+                docs.add(id(body[0].value))
+    return [n.value for n in ast.walk(tree)
+            if isinstance(n, ast.Constant) and isinstance(n.value, str) and id(n) not in docs]
+
+
+def test_no_port_file_builds_a_path_into_the_reference():
+    """No string in the port's code, chip_smoke.py or tools/ names the JAX package's
+    directory as a path component. Docstrings, messages and `file.py:line`
+    citations of the reference may name its files."""
+    component = re.compile(r"^amcslam_tpu$|^amcslam_tpu[/\\]|[/\\]amcslam_tpu([/\\]|$)")
+    citation = re.compile(r"\.py:\d+(-\d+)?$")
+    for path in port_sources():
+        tree = ast.parse(path.read_text())
+        bad = [s for s in _code_strings(tree)
+               if component.search(s) and " " not in s and not citation.search(s)]
+        assert not bad, (path, bad)
