@@ -6,7 +6,10 @@ the same for the pose solver's `PoseGPData`/`PoseState` and
 `vel_ransac_from_numpy` for `VelRansacData`. The `*from_reference`
 functions take the reference package's NamedTuples through `np.asarray`
 without importing JAX, so the same problem can be pushed through both
-packages; `to_numpy` goes the other way.
+packages; `to_numpy` goes the other way. The loop-closing carriers
+(`sim3_ransac_from`, `sim3_pair_from`, `essential_graph_from`,
+`sim3_field_from`, `sim3_from`) take either a reference NamedTuple or a
+name -> array mapping.
 
 Dtypes: integer fields become int64 (every index tensor is int64 from here
 on), boolean fields stay bool, floating fields take the requested dtype.
@@ -19,9 +22,12 @@ from typing import Any, Mapping
 import numpy as np
 import torch
 
+from .ops.sim3 import Sim3
+from .ransac.sim3_solver import Sim3RansacData
 from .ransac.vel_ransac import VelRansacData
 from .solver.ba import BAState, LocalBAData
 from .solver.pose_solver import PoseGPData, PoseState
+from .solver.sim3_opt import EssentialGraphData, Sim3Field, Sim3PairData
 
 
 def _tensor(a, device, dtype) -> torch.Tensor:
@@ -87,6 +93,36 @@ def vel_ransac_from_numpy(fields: Mapping[str, Any], device="cpu",
 def vel_ransac_from_reference(data, device="cpu", dtype=torch.float64) -> VelRansacData:
     """Port tensors from the reference's VelRansacData."""
     return vel_ransac_from_numpy(_arrays(data), device=device, dtype=dtype)
+
+
+def _fields(x) -> Mapping[str, Any]:
+    """A NamedTuple's fields as numpy arrays, or a mapping as it is."""
+    return _arrays(x) if hasattr(x, "_asdict") else x
+
+
+def sim3_ransac_from(x, device="cpu", dtype=torch.float64) -> Sim3RansacData:
+    """Sim3RansacData from the reference's NamedTuple or a mapping."""
+    return _named(Sim3RansacData, _fields(x), device, dtype)
+
+
+def sim3_pair_from(x, device="cpu", dtype=torch.float64) -> Sim3PairData:
+    """Sim3PairData from the reference's NamedTuple or a mapping."""
+    return _named(Sim3PairData, _fields(x), device, dtype)
+
+
+def essential_graph_from(x, device="cpu", dtype=torch.float64) -> EssentialGraphData:
+    """EssentialGraphData from the reference's NamedTuple or a mapping."""
+    return _named(EssentialGraphData, _fields(x), device, dtype)
+
+
+def sim3_field_from(x, device="cpu", dtype=torch.float64) -> Sim3Field:
+    """Sim3Field from the reference's NamedTuple or a mapping."""
+    return _named(Sim3Field, _fields(x), device, dtype)
+
+
+def sim3_from(x, device="cpu", dtype=torch.float64) -> Sim3:
+    """Sim3 (s, R, t) from the reference's NamedTuple or a mapping."""
+    return _named(Sim3, _fields(x), device, dtype)
 
 
 def _copy(a):

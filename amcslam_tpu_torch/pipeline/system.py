@@ -1,16 +1,17 @@
 """System facade (rebuild of src/System.cc): wiring, per-tick entry point,
 trajectory savers, atlas checkpoint/resume.
 
-Port of `amcslam_tpu/pipeline/system.py` with loop closing off: the
-sequential schedule (track -> drain the local mapper) and the threaded one
-(the mapper on a background thread, serialized against tracking by the
-active map's mutex per stage). Tracking and local mapping run their solves
-on the System's explicit `device` in its `dtype`; both threads use the
-device's default stream. The reference's XLA cache clearing is not ported
-(nothing here compiles per shape).
-
-Loop closing (ROADMAP item 10) is the next slice of the port:
-`enable_loop_closing=True` raises until it lands.
+Port of `amcslam_tpu/pipeline/system.py`: the sequential schedule (track
+-> drain the local mapper -> drain the loop closer) and the threaded one
+(mapper and closer on a background thread, serialized against tracking by
+the active map's mutex: per stage for the mapper, around each `run_once`
+for the closer, whose global BA then runs detached on a thread of its own).
+Tracking, local mapping and loop closing run their solves on the System's
+explicit `device` in its `dtype`; every thread uses the device's default
+stream. An exception in the background thread or in the detached global BA
+is raised to the caller by the next `track_multicamera` and by `shutdown`.
+The reference's XLA cache clearing is not ported (nothing here compiles per
+shape).
 """
 
 from __future__ import annotations
@@ -26,6 +27,7 @@ import torch
 from .extraction import preset_shape_buckets
 from .keyframe_database import KeyFrameDatabase
 from .local_mapping import LocalMapping
+from .loop_closing import LoopClosing
 from .map_store import Atlas, Frame
 from .rig import Rig
 from .tracking import Tracking, TrackingConfig, TrackState, resolve_device
@@ -43,20 +45,24 @@ class System:
         device,
         dtype=torch.float32,
     ):
-        if enable_loop_closing:
-            raise NotImplementedError(
-                "loop closing is not ported yet (ROADMAP item 10: ops/sim3, "
-                "ransac/sim3_solver, solver/sim3_opt, pipeline/loop_closing); "
-                "pass enable_loop_closing=False")
         self.device = resolve_device(device)
         self.dtype = dtype
         self.rig = rig
         self.atlas = Atlas()
         self.kfdb = KeyFrameDatabase()
-        self.loop_closer = None
+        # threaded mode gets the reference's interruption semantics: a
+        # detached abortable global BA (LoopClosing.cc:1036-1044) and the
+        # mbAbortBA force-stop on the local BA (LocalMapping.cc:215); the
+        # sequential schedule stays synchronous and deterministic.
+        self.loop_closer = (
+            LoopClosing(rig, self.atlas.active, self.kfdb, detached_gba=threaded,
+                        device=self.device, dtype=dtype)
+            if enable_loop_closing
+            else None
+        )
         self.local_mapper = LocalMapping(
             rig, self.atlas.active, b_extrinsic=b_extrinsic,
-            loop_closer=None, interruptible=threaded,
+            loop_closer=self.loop_closer, interruptible=threaded,
             device=self.device, dtype=dtype,
         )
         self.tracker = Tracking(
@@ -87,6 +93,9 @@ class System:
         if not self.threaded:
             while self.local_mapper.run_once():
                 pass
+            if self.loop_closer is not None:
+                while self.loop_closer.run_once():
+                    pass
         return state
 
     def _background(self):
@@ -99,6 +108,9 @@ class System:
                 # map-mutating stage but releases it for the local-BA solve, so
                 # tracking is never blocked for a device solve
                 busy = self.local_mapper.run_once(lock=m.mutex)
+                if self.loop_closer is not None:
+                    with m.mutex:
+                        busy = self.loop_closer.run_once() or busy
                 if not busy:
                     time.sleep(0.002)
         except Exception as e:  # reported to the caller's thread
@@ -106,7 +118,9 @@ class System:
 
     def _raise_worker_error(self):
         if self._worker_error is not None:
-            raise RuntimeError("the background local mapper failed") from self._worker_error
+            raise RuntimeError("the background mapper/loop closer failed") from self._worker_error
+        if self.loop_closer is not None:
+            self.loop_closer.raise_gba_error()
 
     def activate_localization_mode(self):
         """System::ActivateLocalizationMode: tracking only, map frozen."""
@@ -120,8 +134,10 @@ class System:
         if self.threaded:
             self._worker.join(timeout=60)
             if self._worker.is_alive():
-                raise RuntimeError("the background local mapper did not stop within 60 s")
-            self._raise_worker_error()
+                raise RuntimeError("the background mapper did not stop within 60 s")
+        if self.loop_closer is not None:
+            self.loop_closer.join_gba(timeout=600)
+        self._raise_worker_error()
 
     # ------------------------------------------------------------------
     def save_trajectory_tum(self, path: str):
@@ -225,12 +241,16 @@ class System:
         self.tracker.atlas = self.atlas
         self.tracker.trajectory = state["trajectory"]
         self.local_mapper.map = self.atlas.active
+        if self.loop_closer is not None:
+            self.loop_closer.map = self.atlas.active
         # rebuild the retrieval database (PostLoad id remapping analog). As
         # in the reference, the tracker keeps the database it was built with
         # (ROADMAP §3 lists this).
         self.kfdb = KeyFrameDatabase()
         for kf in self.atlas.active.keyframes.values():
             self.kfdb.add(kf)
+        if self.loop_closer is not None:
+            self.loop_closer.kfdb = self.kfdb
 
     def reset_active_map(self):
         """ResetActiveMap chain (System.h:129-131)."""
@@ -240,3 +260,6 @@ class System:
         self.local_mapper.map = self.atlas.active
         self.local_mapper.queue.clear()
         self.local_mapper.recent_points.clear()
+        if self.loop_closer is not None:
+            self.loop_closer.map = self.atlas.active
+            self.loop_closer.queue.clear()

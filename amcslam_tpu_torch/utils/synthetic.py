@@ -1,6 +1,9 @@
-"""Synthetic pose-solve and local-BA problems (port of
+"""Synthetic pose-solve, local-BA, sequence and loop problems (port of
 `amcslam_tpu/utils/synthetic.py`: `_np_exp_se3`, `make_rig`,
-`make_pose_problem`, `make_local_ba_problem`, `make_sequence`).
+`make_pose_problem`, `make_local_ba_problem`, `make_sequence`,
+`make_essential_graph`), and `build_loop_map`, a copy of the reference's
+drifted-loop test map (`tests/test_loop_closing.py:13-121`) on the port's
+map store.
 
 The generator is the reference's numpy code, draw for draw from
 `np.random.RandomState(seed)`, so for the same arguments it emits the same
@@ -545,3 +548,189 @@ def make_sequence(
             )
         )
     return frames, rig, Ts, (X, descs)
+
+
+def make_essential_graph_numpy(n_kf=500, n_loop=40, drift=0.002, seed=0,
+                               step_m=0.1, laps=None):
+    """A Sim3 pose-graph instance (config 5) as numpy arrays: n_kf
+    keyframes on a loopy trajectory, consecutive-chain Sim3 edges measured
+    from drifted odometry, plus n_loop drift-free loop-closure edges to
+    early keyframes (Optimizer::OptimizeEssentialGraph topology,
+    Optimizer.cc:1390-1680).
+
+    `step_m` is the spacing of keyframes in meters (path length ~= n_kf *
+    step_m). With `laps=L`, the ground truth is L closed circuits of one
+    circle and the loop edges are revisit closures: every
+    (n_kf - n_kf//L)/n_loop-th keyframe on laps >= 2 gets a drift-free edge
+    to the keyframe one lap earlier at the same spot.
+
+    Returns (EssentialGraphData fields, drifted Sim3Field fields, gt poses
+    (n_kf,4,4)), as the reference's `make_essential_graph` draws them."""
+    rng = np.random.RandomState(seed)
+    Ts = [np.eye(4)]
+    if laps is None:
+        # the open arc (one tenth of a turn over the run)
+        xi_step = np.array([step_m * 10.0, 0.0, 0.0, 0.0, 0.0, 2 * np.pi / n_kf]) * 0.1
+    else:
+        # a closed circle per lap
+        per_lap = n_kf // laps
+        xi_step = np.array([step_m, 0.0, 0.0, 0.0, 0.0, 2 * np.pi / per_lap])
+    for _ in range(1, n_kf):
+        Ts.append(Ts[-1] @ _np_exp_se3(xi_step))
+    Ts = np.stack(Ts)
+
+    # drifted estimates: accumulate noisy relative motions
+    Td = [Ts[0]]
+    for k in range(1, n_kf):
+        rel = np.linalg.inv(Ts[k - 1]) @ Ts[k]
+        rel = rel @ _np_exp_se3(rng.randn(6) * drift)
+        Td.append(Td[-1] @ rel)
+    Td = np.stack(Td)
+
+    pairs, ms, mR, mt = [], [], [], []
+    # chain edges measured from the drifted odometry (consistent with state0)
+    for k in range(1, n_kf):
+        rel = np.linalg.inv(Td[k]) @ Td[k - 1]
+        pairs.append([k - 1, k]); ms.append(1.0)  # noqa: E702
+        mR.append(rel[:3, :3]); mt.append(rel[:3, 3])  # noqa: E702
+    if laps is None:
+        # drift-free ground-truth constraints to early keyframes
+        for _ in range(n_loop):
+            a = int(rng.randint(0, n_kf // 4))
+            b = int(rng.randint(3 * n_kf // 4, n_kf))
+            rel = np.linalg.inv(Ts[b]) @ Ts[a]
+            pairs.append([a, b]); ms.append(1.0)  # noqa: E702
+            mR.append(rel[:3, :3]); mt.append(rel[:3, 3])  # noqa: E702
+    else:
+        # revisit closures: keyframe b on lap >= 2 against the keyframe one
+        # lap earlier
+        per_lap = n_kf // laps
+        stride = max(1, (n_kf - per_lap) // max(n_loop, 1))
+        for b in range(per_lap, n_kf, stride):
+            a = b - per_lap
+            rel = np.linalg.inv(Ts[b]) @ Ts[a]
+            pairs.append([a, b]); ms.append(1.0)  # noqa: E702
+            mR.append(rel[:3, :3]); mt.append(rel[:3, 3])  # noqa: E702
+
+    E = len(pairs)
+    data = dict(pairs=np.array(pairs, np.int64), meas_s=np.array(ms),
+                meas_R=np.stack(mR), meas_t=np.stack(mt), valid=np.ones(E, bool),
+                fixed=np.arange(n_kf) == 0, fix_scale=np.asarray(True))
+    Tdw = np.linalg.inv(Td)  # vertices store world->body (Scw convention)
+    state0 = dict(s=np.ones(n_kf), R=Tdw[:, :3, :3], t=Tdw[:, :3, 3])
+    return data, state0, Ts
+
+
+def make_essential_graph(n_kf=500, n_loop=40, drift=0.002, seed=0, dtype=torch.float64,
+                         step_m=0.1, laps=None, device="cpu"):
+    """`make_essential_graph_numpy` as (EssentialGraphData, Sim3Field, gt
+    poses) with tensors on `device` in `dtype`."""
+    from ..convert import essential_graph_from, sim3_field_from
+
+    data, state0, Ts = make_essential_graph_numpy(n_kf, n_loop, drift, seed, step_m, laps)
+    return (essential_graph_from(data, device=device, dtype=dtype),
+            sim3_field_from(state0, device=device, dtype=dtype), Ts)
+
+
+def build_loop_map(n_kf=14, n_lm=120, drift=0.04, seed=0, n_local=25, noise_px=0.3):
+    """Closed circular trajectory with accumulating odometry drift, on the
+    port's map store (a copy of the reference's test-data builder,
+    `tests/test_loop_closing.py:13-121`, draw for draw). Every consecutive
+    keyframe pair co-observes a local stereo landmark cluster; the last
+    keyframe revisits the first one's area and re-observes its landmarks as
+    drifted duplicate points (what tracking would triangulate), which loop
+    closing must detect, align, fuse and optimize away. Observations are
+    consistent with the ground truth, so it is the chi2 optimum (keyframe 0
+    fixes the gauge). Returns (map, rig, keyframes, gt poses)."""
+    from ..pipeline.map_store import KeyFrame, Map, MapPoint
+    from ..pipeline.rig import Rig
+
+    rng = np.random.RandomState(seed)
+    Tbc, K, bf = make_rig(2, seed + 1)
+    rig = Rig(Tbc=Tbc, K=K, bf=bf)
+    m = Map()
+    cam = rig.n_cams - 1
+
+    step = np.array([1.2, 0, 0, 0, 0, 2 * np.pi / n_kf])
+    gt = [np.eye(4)]
+    for _ in range(n_kf - 1):
+        gt.append(gt[-1] @ _np_exp_se3(step))
+    est = [np.eye(4)]
+    for k in range(n_kf - 1):
+        noise = np.concatenate([rng.randn(3) * drift, rng.randn(3) * drift * 0.2])
+        est.append(est[-1] @ _np_exp_se3(step + noise))
+
+    # start-area landmarks (seen by the first and the last keyframe)
+    X0 = rng.randn(n_lm, 3) * 2 + np.array([4.0, 0, 1.0])
+    # per-step local clusters in front of the stereo camera at gt pose k,
+    # co-observed by keyframes k and k+1
+    Xloc = []
+    for k in range(n_kf - 1):
+        Xc = np.stack([rng.uniform(-4, 4, n_local), rng.uniform(-3, 3, n_local),
+                       rng.uniform(5, 14, n_local)], 1)
+        Twc = gt[k] @ Tbc[cam]
+        Xloc.append(Xc @ Twc[:3, :3].T + Twc[:3, 3])
+    n_total = n_lm + (n_kf - 1) * n_local
+    descs = rng.randint(0, 256, (n_total, 32)).astype(np.uint8)
+
+    def project(Twb_gt, Xw):
+        Tcw = np.linalg.inv(Twb_gt @ Tbc[cam])
+        Xc = Xw @ Tcw[:3, :3].T + Tcw[:3, 3]
+        z = np.maximum(Xc[:, 2], 1e-9)
+        u = K[cam, 0] * Xc[:, 0] / z + K[cam, 2]
+        v = K[cam, 1] * Xc[:, 1] / z + K[cam, 3]
+        return np.stack([u, v], 1), u - bf / z, Xc[:, 2] > 0.5
+
+    mp_of = {}  # landmark index -> MapPoint
+    kfs = []
+    prev = None
+    for k in range(n_kf):
+        obs = []  # (landmark index, Xw_gt, anchor step)
+        if k == 0 or k == n_kf - 1:
+            obs += [(l, X0[l], 0) for l in range(n_lm)]  # noqa: E741
+        for ck in (k - 1, k):
+            if 0 <= ck < n_kf - 1:
+                obs += [(n_lm + ck * n_local + i, Xloc[ck][i], ck) for i in range(n_local)]
+        ids = np.array([o[0] for o in obs], int)
+        Xw = np.stack([o[1] for o in obs]) if obs else np.zeros((0, 3))
+        anchors = np.array([o[2] for o in obs], int)
+        kp, ur, vis = project(gt[k], Xw)
+        ids, Xw, anchors = ids[vis], Xw[vis], anchors[vis]
+        kp, ur = kp[vis], ur[vis]
+        kp = kp + rng.randn(*kp.shape) * noise_px
+        ur = ur + rng.randn(*ur.shape) * noise_px
+
+        kf = KeyFrame(
+            timestamp=float(k), cam_times=np.array([k - 0.02, float(k)]), Twb=est[k].copy(),
+            velocity=np.zeros(6), keypoints=[np.zeros((0, 2)), kp],
+            kp_octaves=[np.zeros(0, np.int64), np.zeros(len(kp), np.int64)],
+            descriptors=[np.zeros((0, 32), np.uint8), descs[ids]], kp_ur=ur,
+        )
+        kf.prev_kf = prev
+        if prev is not None:
+            prev.next_kf = kf
+        m.add_keyframe(kf)
+        kfs.append(kf)
+        prev = kf
+
+        for i, l in enumerate(ids):  # noqa: E741
+            g = kf.global_index(1, i)
+            if k == n_kf - 1 and l < n_lm:
+                # the revisit: tracking would triangulate a drifted duplicate
+                dT = est[k] @ np.linalg.inv(gt[k])
+                mp = MapPoint(position=dT[:3, :3] @ Xw[i] + dT[:3, 3], descriptor=descs[l],
+                              first_kf_id=kf.id)
+                m.add_map_point(mp)
+            elif l in mp_of:
+                mp = mp_of[l]
+            else:
+                dT = est[anchors[i]] @ np.linalg.inv(gt[anchors[i]])
+                mp = MapPoint(position=dT[:3, :3] @ Xw[i] + dT[:3, 3], descriptor=descs[l],
+                              first_kf_id=kf.id)
+                mp_of[l] = mp
+                m.add_map_point(mp)
+            mp.add_observation(kf, 1, g)
+            kf.matches[g] = mp.id
+    for kf in kfs:
+        kf.update_connections(m.map_points)
+    return m, rig, kfs, gt

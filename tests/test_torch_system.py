@@ -2,8 +2,9 @@
 reference's, and the System's own behaviours on the port alone.
 
 The whole-System comparison runs both packages once (a module fixture) on
-make_sequence(n_frames=8, n_cams=3, n_lm=250, seed=1) with loop closing off
-and the reference's bucket presets off (AMCSLAM_NO_BUCKET_PRESET=1: the
+make_sequence(n_frames=8, n_cams=3, n_lm=250, seed=1) with loop closing on
+(both defaults; the sequence makes fewer than 12 keyframes, so each closer
+only fills its keyframe database) and the reference's bucket presets off (AMCSLAM_NO_BUCKET_PRESET=1: the
 reference then compiles small programs; its run is ~80 s of XLA compiles on
 the CPU). Both pipelines run their solves in float32, the reference
 pipeline's dtype. Per frame they must give the same tracking state, the same
@@ -22,6 +23,7 @@ import time
 
 import numpy as np
 import pytest
+import torch
 
 import amcslam_tpu.pipeline.map_store as ref_map_store
 from amcslam_tpu.pipeline import extraction as ref_extraction
@@ -75,11 +77,9 @@ def runs():
     os.environ["AMCSLAM_NO_BUCKET_PRESET"] = "1"
     try:
         ref = _run(ref_map_store, ref_extraction, ref_synthetic.make_sequence,
-                   lambda rig: RefSystem(rig, RefTrackingConfig(**CFG),
-                                         enable_loop_closing=False))
+                   lambda rig: RefSystem(rig, RefTrackingConfig(**CFG)))
         port = _run(port_map_store, port_extraction, port_synthetic.make_sequence,
-                    lambda rig: System(rig, TrackingConfig(**CFG),
-                                       enable_loop_closing=False, device="cpu"))
+                    lambda rig: System(rig, TrackingConfig(**CFG), device="cpu"))
     finally:
         if old is None:
             os.environ.pop("AMCSLAM_NO_BUCKET_PRESET", None)
@@ -104,6 +104,17 @@ def test_same_keyframes_per_frame(runs):
 def test_same_map_point_counts_per_frame(runs):
     ref, port = runs["ref"][3], runs["port"][3]
     assert [p["n_mp"] for p in port] == [r["n_mp"] for r in ref]
+
+
+def test_both_databases_hold_the_same_keyframes(runs):
+    """Each closer filled its System's keyframe database with every
+    keyframe (the 12-keyframe guard of LoopClosing.cc:212-217)."""
+    ref_sys, port_sys = runs["ref"][0], runs["port"][0]
+    port_ids = sorted(port_sys.kfdb.kfs)
+    assert port_ids == sorted(ref_sys.kfdb.kfs)
+    assert port_ids == sorted(port_sys.atlas.active.keyframes)
+    assert port_sys.tracker.kfdb is port_sys.kfdb is port_sys.loop_closer.kfdb
+    assert port_sys.loop_closer.loops_closed == ref_sys.loop_closer.loops_closed == 0
 
 
 def test_poses_agree_per_frame(runs):
@@ -208,13 +219,22 @@ def test_reset_active_map():
     assert sys_.atlas.active.n_keyframes() == 1
 
 
-def test_loop_closing_is_not_ported_yet():
-    _, rig, _, _ = port_synthetic.make_sequence(n_frames=1, n_cams=2, n_lm=10, seed=0)
-    with pytest.raises(NotImplementedError, match="ROADMAP item 10"):
-        System(rig, device="cpu")
+def test_system_runs_with_its_defaults():
+    """System(rig, device=...) with every default: loop closing on, the
+    closer sharing the System's database, device and dtype."""
+    frames, rig, Ts, _ = port_synthetic.make_sequence(n_frames=4, n_cams=3, n_lm=250, seed=1)
+    sys_ = System(rig, device="cpu")
+    lc = sys_.loop_closer
+    assert lc is not None and lc.kfdb is sys_.kfdb and sys_.local_mapper.loop_closer is lc
+    assert lc.device == torch.device("cpu") and lc.dtype == torch.float32 and not lc.detached_gba
+    states = [sys_.track_multicamera(f) for f in frames]
+    assert all(st == TrackState.OK for st in states), states
+    assert sorted(sys_.kfdb.kfs) == sorted(sys_.atlas.active.keyframes)
+    assert np.linalg.norm(frames[-1].Twb[:3, 3] - Ts[-1][:3, 3]) < 0.05
+    sys_.shutdown()
 
 
-def midway():
+def midway(loop_closing=False):
     """The port's System after 6 of 10 frames of another sequence, with the
     four frames that follow (a fresh run per test: the System holds thread
     primitives and does not deep-copy)."""
@@ -223,7 +243,7 @@ def midway():
     try:
         sys_, frames, Ts, per_frame = _run(
             port_map_store, port_extraction, port_synthetic.make_sequence,
-            lambda rig: System(rig, TrackingConfig(**CFG), enable_loop_closing=False,
+            lambda rig: System(rig, TrackingConfig(**CFG), enable_loop_closing=loop_closing,
                                device="cpu"),
             seq=dict(n_frames=10, n_cams=3, n_lm=300, seed=6), n=6)
     finally:
@@ -268,6 +288,57 @@ def test_relocalization_recovers():
     assert tr.frames_since_reloc == 0
     assert np.linalg.norm(f.Twb[:3, 3] - Ts[6][:3, 3]) < 0.05
     assert _rot_angle(f.Twb[:3, :3], Ts[6][:3, :3]) < 0.01
+
+
+def test_live_run_relocalizes_from_the_closers_database():
+    """With loop closing on, the keyframe database is the one the closer
+    filled during the run (nothing added by hand): a tracker forced to
+    RECENTLY_LOST with a wrong pose relocalizes from it on the next frame."""
+    sys_, frames, Ts = midway(loop_closing=True)
+    tr = sys_.tracker
+    assert tr.kfdb is sys_.loop_closer.kfdb
+    assert sorted(tr.kfdb.kfs) == sorted(sys_.atlas.active.keyframes)
+    wrong = np.eye(4)
+    wrong[:3, 3] = [3.0, -2.0, 1.0]
+    tr.last_frame.Twb = tr.last_frame.Twb @ wrong
+    tr.velocity_model = np.zeros(6)
+    tr.state = TrackState.RECENTLY_LOST
+    f = frames[6]
+    assert sys_.track_multicamera(f) == TrackState.OK
+    assert tr.frames_since_reloc == 0
+    assert np.linalg.norm(f.Twb[:3, 3] - Ts[6][:3, 3]) < 0.05
+    assert _rot_angle(f.Twb[:3, :3], Ts[6][:3, :3]) < 0.01
+
+
+def test_background_and_detached_ba_errors_reach_the_caller():
+    """An exception in the background thread (here the loop closer's) or in
+    the detached global BA is raised by the next track_multicamera and by
+    shutdown."""
+    frames, rig, _, _ = port_synthetic.make_sequence(n_frames=3, n_cams=3, n_lm=250, seed=2)
+    sys_ = System(rig, TrackingConfig(**CFG), threaded=True, device="cpu")
+    try:
+        def failing():
+            raise ValueError("closer failed")
+
+        sys_.loop_closer.run_once = failing
+        deadline = time.time() + 30
+        while sys_._worker_error is None and time.time() < deadline:
+            time.sleep(0.01)
+        with pytest.raises(RuntimeError, match="mapper/loop closer failed") as info:
+            sys_.track_multicamera(frames[0])
+        assert isinstance(info.value.__cause__, ValueError)
+    finally:
+        sys_._stop = True
+        sys_._worker.join(timeout=30)
+    assert not sys_._worker.is_alive()
+
+    seq = System(rig, TrackingConfig(**CFG), device="cpu")
+    assert seq.track_multicamera(frames[0]) == TrackState.OK
+    seq.loop_closer.gba_error = ValueError("global BA failed")
+    with pytest.raises(RuntimeError, match="detached global BA failed"):
+        seq.track_multicamera(frames[1])
+    with pytest.raises(RuntimeError, match="detached global BA failed"):
+        seq.shutdown()
 
 
 def test_threaded_schedule_keeps_the_map_consistent():
