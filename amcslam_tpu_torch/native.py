@@ -1,16 +1,19 @@
-"""The reference's native (C++) matcher and graph builder, built for the port.
+"""The reference's native (C++) matcher, graph builder and ORB extractor,
+built for the port.
 
-Port of `amcslam_tpu/native/__init__.py:20-162`. There is one C++ source,
-the port's own `csrc/graph_builder.cpp`: a byte-for-byte copy of the
-reference's `amcslam_tpu/native/graph_builder.cpp` (tests/test_torch_guards.py
-pins the two equal), so the port builds nothing from the reference's tree.
-It is compiled with g++ into `build/native/` at the repository root, named
-by a hash of the source and the interpreter's extension suffix, and imported
-as the extension module `_graph_builder`.
+Port of `amcslam_tpu/native/__init__.py:20-162`. There are two C++ sources,
+the port's own `csrc/graph_builder.cpp` and `csrc/orb_fast.cpp`: byte-for-byte
+copies of the reference's `amcslam_tpu/native/graph_builder.cpp` and
+`orb_fast.cpp` (tests/test_torch_guards.py pins them equal), so the port
+builds nothing from the reference's tree. Each is compiled with g++ into
+`build/native/` at the repository root, named by a hash of the source and
+the interpreter's extension suffix, and imported as the extension module
+`_<name>`.
 
-`available()` is False only when there is no `g++` on the PATH; then the
-matcher takes its torch bit-plane path (pipeline/matcher.py). A compiler that
-is present but fails raises with its output: there is no silent fallback.
+`available(name)` is False only when there is no `g++` on the PATH; then the
+matcher takes its torch bit-plane path (pipeline/matcher.py) and the host ORB
+its numpy path (frontend/orb.py). A compiler that is present but fails raises
+with its output: there is no silent fallback.
 """
 
 from __future__ import annotations
@@ -27,32 +30,40 @@ from pathlib import Path
 import numpy as np
 
 PKG_DIR = Path(__file__).resolve().parent
-SOURCE = PKG_DIR / "csrc" / "graph_builder.cpp"
+SOURCES = {name: PKG_DIR / "csrc" / f"{name}.cpp" for name in ("graph_builder", "orb_fast")}
+SOURCE = SOURCES["graph_builder"]
 BUILD_DIR = PKG_DIR.parent / "build" / "native"
 CXX_FLAGS = ("-O3", "-march=native", "-shared", "-fPIC", "-std=c++17")
+# orb_fast.cpp promises the numpy oracle's float64 arithmetic operation for
+# operation (its header); g++ would otherwise fuse multiply-adds into FMAs
+# under -march=native, and the pyramid's bilinear weights and the BRIEF
+# rotation then round a few pixels and samples to the other integer
+EXTRA_FLAGS = {"orb_fast": ("-ffp-contract=off",)}
 
 _lock = threading.Lock()
-_mod = None
+_mods: dict = {}
 
 
-def build() -> Path:
-    """Compile the source into `build/native/` unless an up-to-date module is
-    there already; returns its path. Raises RuntimeError if g++ is missing
-    or fails."""
+def build(name: str = "graph_builder") -> Path:
+    """Compile the source `name` into `build/native/` unless an up-to-date
+    module is there already; returns its path. Raises RuntimeError if g++ is
+    missing or fails."""
+    source = SOURCES[name]
     cxx = shutil.which("g++")
     if cxx is None:
-        raise RuntimeError(f"g++ not found: the native matcher is compiled from {SOURCE}")
-    src = SOURCE.read_bytes()
-    tag = hashlib.sha256(src + " ".join(CXX_FLAGS).encode()).hexdigest()[:12]
+        raise RuntimeError(f"g++ not found: the native module is compiled from {source}")
+    flags = CXX_FLAGS + EXTRA_FLAGS.get(name, ())
+    src = source.read_bytes()
+    tag = hashlib.sha256(src + " ".join(flags).encode()).hexdigest()[:12]
     suffix = sysconfig.get_config_var("EXT_SUFFIX") or ".so"
-    out = BUILD_DIR / f"_graph_builder_{tag}{suffix}"
+    out = BUILD_DIR / f"_{name}_{tag}{suffix}"
     if out.is_file():
         return out
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     # compile to a process-private name and rename into place (atomic in a
     # directory), so a concurrent process never imports a partial file
     tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
-    cmd = [cxx, *CXX_FLAGS, f"-I{sysconfig.get_paths()['include']}", str(SOURCE),
+    cmd = [cxx, *flags, f"-I{sysconfig.get_paths()['include']}", str(source),
            "-o", str(tmp)]
     proc = subprocess.run(cmd, capture_output=True, text=True, timeout=300)
     if proc.returncode != 0:
@@ -63,25 +74,45 @@ def build() -> Path:
     return out
 
 
-def _require():
-    """The extension module, built and imported on first use."""
-    global _mod
+def _require(name: str = "graph_builder"):
+    """The extension module `name`, built and imported on first use."""
     with _lock:
-        if _mod is None:
-            path = build()
-            spec = importlib.util.spec_from_file_location("_graph_builder", path)
+        if name not in _mods:
+            path = build(name)
+            spec = importlib.util.spec_from_file_location(f"_{name}", path)
             mod = importlib.util.module_from_spec(spec)
             spec.loader.exec_module(mod)
-            _mod = mod
-    return _mod
+            _mods[name] = mod
+    return _mods[name]
 
 
-def available() -> bool:
+def available(name: str = "graph_builder") -> bool:
     """True when the module builds and loads; False only without g++."""
-    if _mod is None and shutil.which("g++") is None:
+    if name not in _mods and shutil.which("g++") is None:
         return False
-    _require()
+    _require(name)
     return True
+
+
+def orb_extract(img: np.ndarray, n_levels: int, scale_factor: float,
+                ini_th: int, min_th: int, budgets: np.ndarray,
+                pattern: np.ndarray, patch_off: np.ndarray):
+    """Native full-pyramid ORB extraction (csrc/orb_fast.cpp). Returns
+    (xy (N,2) float64 level-0 px, octave (N,) int64, desc (N,32) uint8,
+    angle (N,) float64)."""
+    mod = _require("orb_fast")
+    xy_b, oc_b, de_b, an_b = mod.extract(
+        np.ascontiguousarray(img, np.uint8), int(n_levels),
+        float(scale_factor), int(ini_th), int(min_th),
+        np.ascontiguousarray(budgets, np.int32),
+        np.ascontiguousarray(pattern, np.int32),
+        np.ascontiguousarray(patch_off, np.int32),
+    )
+    xy = np.frombuffer(xy_b, np.float64).reshape(-1, 2).copy()
+    oc = np.frombuffer(oc_b, np.int32).astype(np.int64)
+    de = np.frombuffer(de_b, np.uint8).reshape(-1, 32).copy()
+    an = np.frombuffer(an_b, np.float64).copy()
+    return xy, oc, de, an
 
 
 def build_obs_edges(matches, kf_of_kp, cam_of_kp, prev_slot,

@@ -76,9 +76,8 @@ result line):
                size; and the same at the global BA's live lba.Um (11a). It
                runs after 9 and 11 because those sizes are known only there.
  11. loop   — loop closing. 11a: the System with loop closing on over
-               the first 56 frames of make_sequence(64 frames, 6 cameras,
-               3000 landmarks, 1 frame/s, 0.3 px, seed 0), a circle the path
-               closes at frame 51, float32,
+               the first 16 frames of make_sequence(64 frames, 6 cameras,
+               3000 landmarks, 1 frame/s, 0.3 px, seed 0), float32,
                sequential, 9a's tracking config: every frame OK, the closer
                ran detection on every keyframe past its 12-keyframe guard and
                its database holds every keyframe, ATE <= 0.5 % of the path;
@@ -110,6 +109,35 @@ result line):
                the ATE before and after, the solve's ms, the CG steps of each
                LM iteration and the final relative residual.
 
+ 12. frontend — the image frontend and the entry points, float32. 12a:
+               one rendered 640x480 tick of the AMV rig (7 images, the seed-1
+               corridor), 1,200 features: the native ORB equals its numpy
+               oracle (keypoints, octaves, descriptors; angles to 1e-12), the
+               device ORB on the card equals the same function on the CPU
+               (slots and scores exact, angles to 1e-5, descriptor bits off
+               the .5 rounding edges exact), the device renderer agrees with
+               the host renderer on >= 99 % of each view's pixels; the share
+               of host keypoints the device ORB also finds (within 1 px, same
+               octave), ms per rig frame of the host thread pool and of the
+               batched device call, the device call's kernel launches. 12b:
+               `e2e_rendered.run` of tests/test_e2e_scenarios.py:63-88 (seed
+               1, 5 fps, 5 async + stereo, 400 features) on its first 16
+               frames with the device ORB and the device renderer: every
+               frame after the first OK, ATE < 0.5 % of the path, async-camera
+               observations in the map, at least one chain launch per tracked
+               frame; then :128-155 (seed 2, async camera 0 KB8) on its first
+               10 frames: the same with ATE < 1 % and KB8 observations in the
+               map; median render / extract / track ms, local-BA ms per
+               keyframe, peak memory. 12c: tests/test_loop_e2e.py:41-48
+               unchanged (70 frames, 5 fps, seed 0, a circle of period 12 s
+               and radius 4 m, 500 features, host ORB): at least one loop
+               closed, ATE < 1 % of the lap; the closer's stage ms and chain
+               launches. 12d: tests/test_amv_cli.py's 6-frame, 3-camera
+               dataset written to build/amv_cli/ with the port's PNG writer,
+               then `python -m amcslam_tpu_torch.examples.multicam_amv
+               <yaml> --no-realtime --device cuda` in a subprocess: exit 0
+               and that test's TUM checks.
+
 The kernels line keeps `ms` and `plain_ms` as phase 5 measures them (the
 entry and the plain version at the headline's 1024 combos, host included);
 phase 10's device time per launch at that size is `device_ms`.
@@ -117,10 +145,14 @@ phase 10's device time per launch at that size is `device_ms`.
 Cuts, so that the whole run stays near 10 minutes, half of its 20-minute
 limit: phase 8's timing runs 3 blocks of 5 solves (5 of 20 before phase 9
 was added, then 3 of 10); since phase 11 was added, 9a runs 16 of its
-sequence's 60 frames (all before; 11a drives the same sequential System
-over 56 frames), 9b 8 (15, then 10) and 9c 12 (30, then 20), and 11a runs
-56 frames of its 64-frame sequence (the path comes back to its start at
-frame 51). Every line carries `t_s`, the seconds since the start.
+sequence's 60 frames (all before), 9b 8 (15, then 10) and 9c 12 (30, then
+20); since phase 12 was added, 11a runs 16 frames of its 64-frame sequence
+(56 before, so that the oracle path came back to its start at frame 51; it
+formed no loop candidate there, and 12c now drives a live revisit and
+closure from rendered images: 16 frames keep 5 detections past the
+closer's guard and its full-map global BA), 12b 16 of its scenario's 40
+frames and the fisheye run 10 of its 30. Every line carries `t_s`, the
+seconds since the start.
 
 The last three lines are the card's `nvidia-smi` name and power limit, the
 kernels' JSON record and the result line.
@@ -128,19 +160,27 @@ kernels' JSON record and the result line.
 
 from __future__ import annotations
 
+import contextlib
 import copy
 import itertools
 import json
+import os
+import shutil
 import statistics
 import subprocess
+import sys
 import threading
 import time
+from concurrent.futures import ThreadPoolExecutor
+from pathlib import Path
 from unittest import mock
 
 import numpy as np
 import torch
 
 from amcslam_tpu_torch import _build, convert, native
+from amcslam_tpu_torch.examples import e2e_rendered as e2e
+from amcslam_tpu_torch.frontend import features, orb, orb_device
 from amcslam_tpu_torch.ops import interp_chain, lie
 from amcslam_tpu_torch.pipeline import extraction, local_mapping, map_store, tracking
 from amcslam_tpu_torch.pipeline.keyframe_database import KeyFrameDatabase
@@ -149,7 +189,7 @@ from amcslam_tpu_torch.pipeline.system import System
 from amcslam_tpu_torch.ransac import vel_ransac
 from amcslam_tpu_torch.solver import ba, pose_solver, sim3_opt
 from amcslam_tpu_torch.solver import lm as tlm
-from amcslam_tpu_torch.utils.io import ate_rmse
+from amcslam_tpu_torch.utils.io import ate_rmse, write_png_gray
 from amcslam_tpu_torch.utils.synthetic import (build_loop_map, make_essential_graph_numpy,
                                                make_local_ba_problem_numpy,
                                                make_pose_problem_numpy, make_sequence)
@@ -1114,11 +1154,10 @@ def phase_system(device, smi):
 # ---------------------------------------------------------------------------
 
 # make_sequence drives the body at the twist [1.5, 0.1, 0, 0, 0, 0.12] per
-# second: a circle of ~12.5 m radius, one lap in 52.4 s. At 1 frame/s frame
-# 51 comes back to the start on the same heading and the frames after it
-# retrace the lap's start (~1,385 keypoints per camera per frame).
+# second: a circle of ~12.5 m radius, one lap in 52.4 s (~1,385 keypoints per
+# camera per frame at 1 frame/s); the first 16 frames are under a third of a lap.
 LOOP_SEQ = dict(n_frames=64, n_cams=6, n_lm=3000, fps=1.0, noise_px=0.3, seed=0)
-LOOP_FRAMES = 56  # of the 64: the revisit stays in
+LOOP_FRAMES = 16  # of the 64: 5 detections past the closer's guard, a full-map global BA
 LOOP_ATE_PCT = 0.5
 # a drifted revisit built by hand (the reference's own loop tests do so:
 # with oracle keypoints a live revisit drifts too little to need a closure),
@@ -1143,13 +1182,15 @@ REFERENCE_11B = {"loop_kf": 0, "last_kf_err_before_m": 3.949, "last_kf_err_after
 
 
 class Timed:
-    """Wall ms and the last result of each call of the named attributes
-    ({name: (owner, attribute)}), patched in for a `with` block, the card
-    synchronized around each call unless the timed work runs on the CPU."""
+    """Wall ms, chain-kernel launches and the last result of each call of
+    the named attributes ({name: (owner, attribute)}), patched in for a
+    `with` block, the card synchronized around each call unless the timed
+    work runs on the CPU."""
 
     def __init__(self, targets: dict, on_card: bool = True):
         self.targets = targets
         self.ms = {name: [] for name in targets}
+        self.launches = dict.fromkeys(targets, 0)
         self.last = {}
         self.sync = sync if on_card else (lambda: None)
 
@@ -1158,13 +1199,14 @@ class Timed:
         for name, (owner, attr) in self.targets.items():
             def timed(*args, _real=getattr(owner, attr), _name=name, **kw):
                 self.sync()
-                t0 = time.perf_counter()
+                t0, n0 = time.perf_counter(), interp_chain.LAUNCHES
                 try:
                     self.last[_name] = _real(*args, **kw)
                     return self.last[_name]
                 finally:
                     self.sync()
                     self.ms[_name].append((time.perf_counter() - t0) * 1e3)
+                    self.launches[_name] += interp_chain.LAUNCHES - n0
             p = mock.patch.object(owner, attr, timed)
             p.start()
             self._patches.append(p)
@@ -1179,8 +1221,9 @@ class Timed:
 
 
 def loop_live(device):
-    """11a: the System with loop closing on over a revisit, float32,
-    sequential; then the closer's own full-map global BA on the final map.
+    """11a: the System with loop closing on, float32, sequential (the closer
+    detects on every keyframe); then the closer's own full-map global BA on
+    the final map.
     Returns (chain launches of both runs, the global BA's chain inputs
     (U, data, state, sid_cols, it_sid, it_t), the record)."""
     t_phase = time.perf_counter()
@@ -1557,6 +1600,325 @@ def phase_loop(device, smi):
 
 
 # ---------------------------------------------------------------------------
+# phase 12: the image frontend and the entry points
+# ---------------------------------------------------------------------------
+
+ORB_FEATURES = 1200   # the reference's default (frontend/features.py:33)
+ORB_RIG_ASYNC = 5     # the AMV rig width: 5 async + stereo, 7 images per tick
+ORB_ANGLE_TOL_NATIVE = 1e-12  # numpy's arctan2 vs libm's atan2, last place
+ORB_ANGLE_TOL = 1e-5          # card vs CPU float32 atan2 (tests/test_torch_orb_device.py)
+ORB_EDGE_TOL = 1e-4           # px from a .5 rounding edge of a rotated BRIEF sample
+ORB_TIMED = 5
+RENDER_AGREE = 0.99
+# tests/test_e2e_scenarios.py:63-88 (the AMV rig width), cut to 16 of its 40
+# frames; :128-155 (async camera 0 KB8), cut to 10 of its 30
+E2E_AMV = dict(n_frames=16, fps=5.0, seed=1, n_async=5, n_features=400)
+E2E_AMV_ATE_PCT = 0.5
+E2E_FISHEYE = dict(n_frames=10, fps=5.0, seed=2, n_features=400, fisheye=True)
+E2E_FISHEYE_ATE_PCT = 1.0
+# tests/test_loop_e2e.py:41-48 unchanged: one 12 s lap of radius 4 m and the
+# revisit, host ORB, host renderer
+E2E_LOOP = dict(n_frames=70, fps=5.0, seed=0, circle=True, circle_period=12.0,
+                circle_radius=4.0, n_features=500)
+E2E_LOOP_ATE_PCT = 1.0
+CLI_DIR = _build.BUILD_DIR.parent / "amv_cli"
+
+
+def orb_frame():
+    """One tick of 12b's run (frame 0 of the seed-1 corridor, AMV rig):
+    the 7 views' poses, the world and the host renders."""
+    planes = e2e.make_world(E2E_AMV["seed"])
+    rig = e2e.make_rig(ORB_RIG_ASYNC)
+    cam_t = rig.cam_times(0.0)
+    Tright = np.eye(4)
+    Tright[:3, 3] = [0.2, 0.0, 0.0]
+    views = ([e2e.gt_pose(cam_t[c]) @ rig.Tbc[c] for c in range(rig.n_cams)]
+             + [e2e.gt_pose(0.0) @ rig.Tbc[-1] @ Tright])
+    with np.errstate(invalid="ignore"):
+        imgs = np.stack([e2e.render(T, planes) for T in views])
+    return planes, views, imgs
+
+
+def host_extract(extractors, imgs):
+    """The host backend's rig extraction: one thread per image (build_frame)."""
+    with ThreadPoolExecutor(max_workers=len(imgs)) as pool:
+        return [f.result() for f in [pool.submit(e.extract, im)
+                                     for e, im in zip(extractors, imgs)]]
+
+
+def matched_share(host, dev) -> float:
+    """Share of host keypoints with a device keypoint of the same octave
+    within 1 px (level-0 pixels)."""
+    found = total = 0
+    for (xy_h, oc_h, _, _), (xy_d, oc_d, _, _) in zip(host, dev):
+        d = np.linalg.norm(xy_h[:, None, :] - xy_d[None, :, :], axis=-1)
+        same = oc_h[:, None] == oc_d[None, :]
+        found += int(((d <= 1.0) & same).any(axis=1).sum())
+        total += len(xy_h)
+    return found / max(total, 1)
+
+
+def kernel_launches(fn) -> int:
+    """CUDA kernels launched by one call of fn (torch.profiler)."""
+    from torch.profiler import ProfilerActivity, profile as tprofile
+
+    sync()
+    with tprofile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        sync()
+    return sum(1 for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA
+               and not e.name.startswith(("Memcpy", "Memset")))
+
+
+def frontend_orb(device) -> dict:
+    """12a: one rendered 640x480 tick of the AMV rig (7 images), 1,200
+    features: the native ORB against its numpy oracle, the device ORB on the
+    card against the same function on the CPU, the device renderer against
+    the host renderer; the host thread pool's and the batched device call's
+    ms per rig frame."""
+    t_phase = time.perf_counter()
+    planes, views, imgs = orb_frame()
+    renderer = e2e.DeviceRenderer(planes, device=device)
+    agree = [float((d == h).mean()) for d, h in zip(renderer(views), imgs)]
+
+    pipe = orb.OrbPipeline(ORB_FEATURES)
+    native_gap = 0.0
+    for img in imgs:
+        got, want = pipe.extract(img), pipe.extract(img, force_python=True)
+        for name, g, w in zip(("xy", "octave", "desc"), got[:3], want[:3]):
+            if not np.array_equal(g, w):
+                raise AssertionError(f"12a: native ORB {name} differs from the numpy oracle")
+        native_gap = max(native_gap, float(np.abs(got[3] - want[3]).max(initial=0.0)))
+    if not native_gap <= ORB_ANGLE_TOL_NATIVE:
+        raise AssertionError(f"12a: native ORB angles {native_gap} from the numpy oracle")
+
+    H, W = imgs.shape[1:]
+    card = orb_device.build_orb_device(H, W, ORB_FEATURES, device=device)
+    cpu = orb_device.build_orb_device(H, W, ORB_FEATURES, device="cpu")
+    a = {k: v.cpu().numpy() for k, v in card(torch.as_tensor(imgs, device=device)).items()}
+    b = {k: v.numpy() for k, v in cpu(torch.as_tensor(imgs)).items()}
+    for k in ("xy", "octave", "valid", "score"):
+        if not np.array_equal(a[k], b[k]):
+            raise AssertionError(f"12a: device ORB {k}: card and CPU differ in "
+                                 f"{int((a[k] != b[k]).sum())} entries")
+    ang_gap = float(np.abs(a["angle"] - b["angle"]).max())
+    diff = np.unpackbits(a["desc"], axis=-1) != np.unpackbits(b["desc"], axis=-1)
+    edge = orb_device.brief_edge_bits(b["angle"], ORB_EDGE_TOL)
+    if not ang_gap <= ORB_ANGLE_TOL or (diff & ~edge).any():
+        raise AssertionError(f"12a: device ORB angles {ang_gap} apart, "
+                             f"{int((diff & ~edge).sum())} descriptor bits off the edges")
+
+    host_ext = features.make_extractors(len(imgs), ORB_FEATURES, "host")
+    dev_ext = features.make_extractors(len(imgs), ORB_FEATURES, "device", device=device)[-1]
+    host = host_extract(host_ext, imgs)
+    dev = list(zip(*dev_ext.extract_batch(imgs)))
+    host_ms, dev_ms = [], []
+    for _ in range(ORB_TIMED):
+        t0 = time.perf_counter()
+        host_extract(host_ext, imgs)
+        host_ms.append((time.perf_counter() - t0) * 1e3)
+        sync()
+        t0 = time.perf_counter()
+        dev_ext.extract_batch(imgs)
+        dev_ms.append((time.perf_counter() - t0) * 1e3)
+    out = {"images": len(imgs), "shape": [H, W], "n_features": ORB_FEATURES,
+           "native_equals_numpy": True, "native_angle_gap_rad": native_gap,
+           "device_card_vs_cpu": {"slots": int(a["valid"].size), "valid": int(a["valid"].sum()),
+                                  "angle_gap_rad": ang_gap, "desc_bits_differing": int(diff.sum()),
+                                  "edge_bits": int(edge.sum())},
+           "host_keypoints_found_by_device": matched_share(host, dev),
+           "host_ms_per_rig_frame": statistics.median(host_ms),
+           "device_ms_per_rig_frame": statistics.median(dev_ms),
+           "device_launches_per_rig_frame": kernel_launches(lambda: dev_ext.extract_batch(imgs)),
+           "render_agreement": {"min": min(agree), "per_view": agree},
+           "seconds": time.perf_counter() - t_phase}
+    emit("frontend_orb", **out)
+    if min(agree) < RENDER_AGREE:
+        raise AssertionError(f"12a: device renderer agrees on {min(agree):.5f} of the pixels")
+    return out
+
+
+def e2e_run(device, kw, timed=None, **extra) -> dict:
+    """One `e2e_rendered.run` on `device`, the chain's counts set to 0 just
+    before it; returns its results, per-frame timings and counts."""
+    GLOBAL_TIMER.samples.clear()
+    torch.cuda.reset_peak_memory_stats()
+    sync()
+    interp_chain.LAUNCHES = 0
+    collect = {}
+    t0 = time.perf_counter()
+    with (timed or contextlib.nullcontext()):
+        ate, dist, n_loops = e2e.run(**kw, **extra, device=device, collect=collect)
+    sync()
+    t = collect["timing"]
+    sys_ = collect["system"]
+    m = sys_.atlas.active
+    lba_ms = [1e3 * x for x in GLOBAL_TIMER.samples["lm.local_ba"]]
+    return {"run": kw, **extra, "ate_m": ate, "path_m": float(dist),
+            "ate_pct_of_path": 100 * ate / dist, "loops_closed": n_loops,
+            "states": [s.name for s in collect["states"]],
+            "keyframes": m.n_keyframes(), "map_points": m.n_map_points(),
+            "render_ms_median": pct(t["render_ms"], 50),
+            "extract_ms_median": pct(t["extract_ms_frames"], 50),
+            "track_ms_median_incl_mapping": pct(t["track_ms"][1:], 50),
+            "local_ba_ms_per_kf": {"median": pct(lba_ms, 50), "n": len(lba_ms)},
+            "chain_kernel_launches": interp_chain.LAUNCHES,
+            "peak_mem_bytes": torch.cuda.max_memory_allocated(),
+            "seconds": time.perf_counter() - t0, "_system": sys_}
+
+
+def map_observations(m, cams) -> int:
+    """Map-point observations by the cameras `cams` (the reference's count,
+    tests/test_e2e_scenarios.py:84-88)."""
+    return sum(1 for mp in m.map_points.values() for slots in mp.observations.values()
+               for c, g in enumerate(slots) if c in cams and g >= 0)
+
+
+def frontend_rendered(device) -> int:
+    """12b: the AMV-width rendered run (device ORB, device renderer), then
+    the fisheye run. Returns the chain's launches of both."""
+    launches = 0
+    for name, kw, bound in (("amv", E2E_AMV, E2E_AMV_ATE_PCT),
+                            ("fisheye", E2E_FISHEYE, E2E_FISHEYE_ATE_PCT)):
+        r = e2e_run(device, kw, backend="device", device_render=True)
+        sys_ = r.pop("_system")
+        m, C = sys_.atlas.active, sys_.rig.n_cams
+        cams = range(C - 1) if name == "amv" else (0,)
+        r["observations_by_cameras"] = {"cameras": list(cams),
+                                        "count": map_observations(m, set(cams))}
+        r["ate_bound_pct"] = bound
+        emit(f"frontend_rendered_{name}", **r)
+        launches += r["chain_kernel_launches"]
+        if any(s != "OK" for s in r["states"][1:]):
+            raise AssertionError(f"12b {name}: not every frame after the first OK: {r['states']}")
+        if not r["ate_m"] < bound / 100 * r["path_m"]:
+            raise AssertionError(f"12b {name}: ATE {r['ate_m']:.4f} m >= {bound} % of "
+                                 f"{r['path_m']:.3f} m")
+        if r["observations_by_cameras"]["count"] == 0:
+            raise AssertionError(f"12b {name}: no observations of cameras {list(cams)} in the map")
+        if name == "fisheye" and sys_.rig.cam_model[0] != 1:
+            raise AssertionError("12b fisheye: camera 0 is not KB8")
+        if r["chain_kernel_launches"] < len(r["states"]) - 1:
+            raise AssertionError(f"12b {name}: {r['chain_kernel_launches']} chain launches for "
+                                 f"{len(r['states']) - 1} tracked frames")
+    return launches
+
+
+def frontend_loop(device) -> int:
+    """12c: the live image-driven loop closure of tests/test_loop_e2e.py on
+    the card: at least one closure, ATE < 1 % of the lap. Returns the
+    chain's launches."""
+    stages = {name: (LoopClosing, attr) for name, attr in (
+        ("detect_common_regions", "detect_common_regions"), ("solve_sim3", "_solve_sim3"),
+        ("correct_loop", "correct_loop"), ("essential_graph", "_essential_graph"),
+        ("search_and_fuse", "_search_and_fuse"), ("global_ba", "_run_global_ba"))}
+    timed = Timed(stages)
+    r = e2e_run(device, E2E_LOOP, timed=timed, backend="host")
+    r.pop("_system")
+    parts = {k: timed.total(k) for k in ("essential_graph", "search_and_fuse", "global_ba")}
+    r["closer_ms"] = {"detection": {"calls": len(timed.ms["detect_common_regions"]),
+                                    "median": pct(timed.ms["detect_common_regions"], 50),
+                                    "total": timed.total("detect_common_regions")},
+                      "sim3": {"calls": len(timed.ms["solve_sim3"]),
+                               "total": timed.total("solve_sim3")},
+                      "propagation": timed.total("correct_loop") - sum(parts.values()),
+                      **parts}
+    r["closer_chain_launches"] = timed.launches
+    r["ate_bound_pct"] = E2E_LOOP_ATE_PCT
+    emit("frontend_loop", **r)
+    if r["loops_closed"] < 1:
+        raise AssertionError("12c: no loop closure on the rendered revisit")
+    if not r["ate_m"] < E2E_LOOP_ATE_PCT / 100 * r["path_m"]:
+        raise AssertionError(f"12c: ATE {r['ate_m']:.4f} m >= {E2E_LOOP_ATE_PCT} % of "
+                             f"{r['path_m']:.3f} m")
+    return r["chain_kernel_launches"]
+
+
+def write_amv_dataset(root, n_frames=6, fps=10.0):
+    """tests/test_amv_cli.py:24-70's dataset (3 cameras, 6 frames) in the
+    AMV layout, written with the port's PNG writer; returns the YAML path."""
+    planes = e2e.make_world(0)
+    rig = e2e.make_rig()
+    Tright = np.eye(4)
+    Tright[:3, 3] = [0.2, 0.0, 0.0]
+    ds = root / "seq"
+    for d in ("cam0", "cam1", "cam2", "cam2_right"):
+        (ds / d).mkdir(parents=True)
+    times = [[] for _ in range(3)]
+    with np.errstate(invalid="ignore"):
+        for k in range(n_frames):
+            cam_t = rig.cam_times(k / fps)
+            for c in range(3):
+                write_png_gray(str(ds / f"cam{c}" / f"{k:06d}.png"),
+                               e2e.render(e2e.gt_pose(cam_t[c]) @ rig.Tbc[c], planes))
+                times[c].append(cam_t[c])
+            write_png_gray(str(ds / "cam2_right" / f"{k:06d}.png"),
+                           e2e.render(e2e.gt_pose(k / fps) @ rig.Tbc[2] @ Tright, planes))
+    for c in range(3):
+        np.savetxt(ds / f"cam{c}" / "times.txt", times[c])
+        K4 = rig.K[c]
+        Km = [[K4[0], 0.0, K4[2]], [0.0, K4[1], K4[3]], [0.0, 0.0, 1.0]]
+        (root / f"cam{c}.json").write_text(json.dumps(
+            {"sensor_to_vehicle": rig.Tbc[c].tolist(), "intrinsics": Km}))
+    yaml_path = root / "run.yaml"
+    yaml_path.write_text("Camera.number: 3\n"
+                         "Camera.calibfiles: [cam0.json, cam1.json, cam2.json]\n"
+                         f"Camera.bf: {rig.bf}\n"
+                         f"dataset: {ds}\n"
+                         "Gaussian.Qc: [1.0, 1.0, 1.0, 1.0, 1.0, 1.0]\n"
+                         "ORBextractor.nFeatures: 800\n"
+                         "loopClosing: 1\n")
+    return yaml_path
+
+
+def frontend_cli(device) -> None:
+    """12d: the AMV replay CLI in a subprocess on the card, on the dataset of
+    tests/test_amv_cli.py; the TUM checks of :84-96."""
+    t0 = time.perf_counter()
+    shutil.rmtree(CLI_DIR, ignore_errors=True)
+    CLI_DIR.mkdir(parents=True)
+    yaml_path = write_amv_dataset(CLI_DIR)
+    root = Path(__file__).resolve().parent
+    env = dict(os.environ, PYTHONPATH=str(root) + os.pathsep + os.environ.get("PYTHONPATH", ""))
+    proc = subprocess.run(
+        [sys.executable, "-m", "amcslam_tpu_torch.examples.multicam_amv", str(yaml_path),
+         "--no-realtime", "--device", str(device), "--out", str(CLI_DIR)],
+        cwd=root, env=env, capture_output=True, text=True, timeout=600)
+    lines = [ln for ln in proc.stdout.splitlines() if "tracking time" in ln or "ticks" in ln]
+    if proc.returncode != 0:
+        raise AssertionError(f"12d: the CLI exited {proc.returncode}:\n{proc.stdout[-4000:]}"
+                             f"\n{proc.stderr[-4000:]}")
+    traj = np.loadtxt(CLI_DIR / "f_0.txt").reshape(-1, 8)
+    kf_traj = np.loadtxt(CLI_DIR / "kf_0.txt").reshape(-1, 8)
+    path = float(np.linalg.norm(np.diff(traj[:, 1:4], axis=0), axis=1).sum())
+    checks = {"rows": len(traj) >= 4 and len(kf_traj) >= 1,
+              "finite": bool(np.isfinite(traj).all() and np.isfinite(kf_traj).all()),
+              "unit_quaternions": bool(np.allclose(np.linalg.norm(traj[:, 4:], axis=1), 1.0,
+                                                   atol=1e-6)),
+              "monotone_times": bool((np.diff(traj[:, 0]) > 0).all()),
+              "path_0.05_to_2_m": 0.05 < path < 2.0}
+    emit("frontend_cli", returncode=proc.returncode, stdout=lines, frames=len(traj),
+         keyframes=len(kf_traj), path_m=path, checks=checks,
+         seconds=time.perf_counter() - t0)
+    if not all(checks.values()):
+        raise AssertionError(f"12d: TUM checks failed: {checks}")
+
+
+def phase_frontend(device, smi) -> int:
+    """Phase 12. Returns the chain's launches of 12b and 12c."""
+    t_phase = time.perf_counter()
+    orb_rec = frontend_orb(device)
+    launches = frontend_rendered(device)
+    launches += frontend_loop(device)
+    frontend_cli(device)
+    emit("frontend_summary", seconds=time.perf_counter() - t_phase, card=smi,
+         chain_kernel_launches=launches,
+         orb_ms_per_rig_frame={"host": orb_rec["host_ms_per_rig_frame"],
+                               "device": orb_rec["device_ms_per_rig_frame"]})
+    return launches
+
+
+# ---------------------------------------------------------------------------
 # phase 10: the chain at the sizes the System launches it
 # ---------------------------------------------------------------------------
 
@@ -1748,6 +2110,8 @@ def main() -> None:
     s_launches, probe = phase_system(device, smi)
     # 11. loop closing
     l_launches, gba_combos = phase_loop(device, smi)
+    # 12. the image frontend and the entry points
+    f_launches = phase_frontend(device, smi)
 
     # 10. the chain at the System's sizes
     _, d9, s9, sid9, it_sid9, it_t9 = probe.lba_combos
@@ -1774,7 +2138,7 @@ def main() -> None:
         "route": "cuda",
         "source": "amcslam_tpu_torch/csrc/interp_chain.cu",
         "replaces": "amcslam_tpu/ops/pallas_chain.py:296",
-        "launches": launches + t_launches + s_launches + l_launches,
+        "launches": launches + t_launches + s_launches + l_launches + f_launches,
         "max_abs_err": max_abs_err,
         "ms": chain_ms["kernel"],
         "plain_ms": chain_ms["plain"],

@@ -35,7 +35,11 @@ def test_every_module_imports_without_jax():
             "amcslam_tpu_torch.ransac.vel_ransac", "amcslam_tpu_torch.ransac.mlpnp",
             "amcslam_tpu_torch.native", "amcslam_tpu_torch.pipeline.system",
             "amcslam_tpu_torch.pipeline.tracking", "amcslam_tpu_torch.pipeline.extraction",
-            "amcslam_tpu_torch.pipeline.matcher"} <= set(mods)
+            "amcslam_tpu_torch.pipeline.matcher", "amcslam_tpu_torch.pipeline.config",
+            "amcslam_tpu_torch.frontend.orb", "amcslam_tpu_torch.frontend.orb_device",
+            "amcslam_tpu_torch.frontend.features", "amcslam_tpu_torch.frontend.cameras",
+            "amcslam_tpu_torch.examples", "amcslam_tpu_torch.examples.e2e_rendered",
+            "amcslam_tpu_torch.examples.multicam_amv"} <= set(mods)
     code = (
         "import importlib, sys\n"
         f"for m in {mods!r}:\n"
@@ -88,6 +92,31 @@ def test_native_source_is_a_copy_of_the_reference():
 
     ref = REPO / "amcslam_tpu" / "native" / "graph_builder.cpp"
     assert native.SOURCE.read_bytes() == ref.read_bytes()
+
+
+def test_native_orb_source_is_a_copy_of_the_reference():
+    from amcslam_tpu_torch import native
+
+    src = native.SOURCES["orb_fast"]
+    assert src == PKG_DIR / "csrc" / "orb_fast.cpp"
+    ref = REPO / "amcslam_tpu" / "native" / "orb_fast.cpp"
+    assert src.read_bytes() == ref.read_bytes()
+
+
+def test_device_orb_and_the_cli_default_raise_without_a_card(tmp_path):
+    """The device ORB backend on "cuda" and the CLI's default device raise
+    on a machine without a card instead of running on the CPU."""
+    from amcslam_tpu_torch.examples import multicam_amv
+    from amcslam_tpu_torch.frontend.features import make_extractors
+
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        make_extractors(2, 300, backend="device", device="cuda")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        make_extractors(2, 300, backend="device")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        multicam_amv.main([str(tmp_path / "run.yaml")])
 
 
 def _code_strings(tree):
