@@ -9,7 +9,9 @@ without importing JAX, so the same problem can be pushed through both
 packages; `to_numpy` goes the other way. The loop-closing carriers
 (`sim3_ransac_from`, `sim3_pair_from`, `essential_graph_from`,
 `sim3_field_from`, `sim3_from`) take either a reference NamedTuple or a
-name -> array mapping.
+name -> array mapping. `vi_ba_from_numpy` / `vi_ba_from_reference` carry
+the visual-inertial BA's data (with its nested preintegration) and state,
+`two_view_from_reference` the two-view initializer's matches.
 
 Dtypes: integer fields become int64 (every index tensor is int64 from here
 on), boolean fields stay bool, floating fields take the requested dtype.
@@ -22,12 +24,15 @@ from typing import Any, Mapping
 import numpy as np
 import torch
 
+from .ops.imu import PreintState
 from .ops.sim3 import Sim3
 from .ransac.sim3_solver import Sim3RansacData
+from .ransac.two_view import TwoViewData
 from .ransac.vel_ransac import VelRansacData
 from .solver.ba import BAState, LocalBAData
 from .solver.pose_solver import PoseGPData, PoseState
 from .solver.sim3_opt import EssentialGraphData, Sim3Field, Sim3PairData
+from .solver.vi_ba import VIBAData, VIBAState
 
 
 def _tensor(a, device, dtype) -> torch.Tensor:
@@ -123,6 +128,35 @@ def sim3_field_from(x, device="cpu", dtype=torch.float64) -> Sim3Field:
 def sim3_from(x, device="cpu", dtype=torch.float64) -> Sim3:
     """Sim3 (s, R, t) from the reference's NamedTuple or a mapping."""
     return _named(Sim3, _fields(x), device, dtype)
+
+
+def vi_ba_from_numpy(data_fields: Mapping[str, Any], device="cpu",
+                     dtype=torch.float64) -> VIBAData:
+    """VIBAData from a name -> array mapping whose "pre" is a mapping (or a
+    NamedTuple) of PreintState fields; `huber_mono` stays a Python float."""
+    pre = _named(PreintState, _fields(data_fields["pre"]), device, dtype)
+    rest = {k: v for k, v in data_fields.items() if k not in ("pre", "huber_mono")}
+    data = _named(VIBAData, {**rest, "pre": None}, device, dtype)._replace(pre=pre)
+    if "huber_mono" in data_fields:
+        data = data._replace(huber_mono=float(np.asarray(data_fields["huber_mono"])))
+    return data
+
+
+def vi_ba_state_from_numpy(state_fields: Mapping[str, Any], device="cpu",
+                           dtype=torch.float64) -> VIBAState:
+    return _named(VIBAState, state_fields, device, dtype)
+
+
+def vi_ba_from_reference(data, state, device="cpu", dtype=torch.float64):
+    """(VIBAData, VIBAState) from the reference's NamedTuples."""
+    fields = {**_arrays(data._replace(pre=None)), "pre": _arrays(data.pre)}
+    return (vi_ba_from_numpy(fields, device=device, dtype=dtype),
+            vi_ba_state_from_numpy(_arrays(state), device=device, dtype=dtype))
+
+
+def two_view_from_reference(data, device="cpu", dtype=torch.float64) -> TwoViewData:
+    """TwoViewData from the reference's NamedTuple or a mapping."""
+    return _named(TwoViewData, _fields(data), device, dtype)
 
 
 def _copy(a):

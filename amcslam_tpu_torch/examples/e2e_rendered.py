@@ -11,7 +11,7 @@ ORB backend is "host" (native/numpy, per-camera threads) or "device" (one
 batched pass on the device).
 
 Usage: python -m amcslam_tpu_torch.examples.e2e_rendered [--frames N]
-       [--device cuda|cpu] [--backend host|device] ...
+       [--device cuda|cpu] [--backend host|device] [--plot out.png] ...
 Prints per-stage timing and the final ATE RMSE vs the ground-truth
 trajectory.
 """
@@ -238,7 +238,7 @@ def gt_pose_eight(t: float, period: float = 16.0, radius: float = 5.0):
     return T
 
 
-def run(n_frames=50, fps=10.0, seed=0, threaded=False,
+def run(n_frames=50, fps=10.0, seed=0, plot=None, threaded=False,
         circle=False, circle_period=16.0, circle_radius=5.0,
         n_features=800, device_render=False, eight=False, n_async=2,
         blackout=None, collect=None, fisheye=False, pace=False, *,
@@ -254,7 +254,8 @@ def run(n_frames=50, fps=10.0, seed=0, threaded=False,
     `fisheye=True`: async camera 0 becomes a KannalaBrandt8 fisheye,
     rendered through kb8_ray_grid, keypoints lifted by the Newton
     inversion. `pace=True`: frame k is not submitted before wall time
-    k/fps. `collect`: optional dict that receives per-frame states, the
+    k/fps. `plot`: a PNG path for the top-down map render
+    (pipeline/viewer.draw_map; needs matplotlib). `collect`: optional dict that receives per-frame states, the
     System, the trajectories and per-frame timings (ms)."""
     device = resolve_device(device)
     if eight:
@@ -372,6 +373,11 @@ def run(n_frames=50, fps=10.0, seed=0, threaded=False,
     print(f"ATE RMSE {ate:.4f} m  ({100*ate/max(dist,1e-9):.2f}% of {dist:.1f} m)")
     if os.environ.get("AMCSLAM_STAGE_STATS"):
         GLOBAL_TIMER.print_stats()
+    if plot:
+        from ..pipeline.viewer import draw_map
+
+        draw_map(slam.atlas.active, trajectory=traj, path=plot)
+        print(f"map render -> {plot}")
     if collect is not None:
         collect["states"] = states
         collect["system"] = slam
@@ -396,6 +402,8 @@ def main(argv=None):
     ap.add_argument("--period", type=float, default=16.0)
     ap.add_argument("--radius", type=float, default=5.0)
     ap.add_argument("--fps", type=float, default=10.0)
+    ap.add_argument("--plot", default=None,
+                    help="write a top-down map render to this PNG (needs matplotlib)")
     ap.add_argument("--features", type=int, default=800)
     ap.add_argument("--threaded", action="store_true",
                     help="run mapping/loop-closing in a background thread "
@@ -434,7 +442,7 @@ def main(argv=None):
     if args.blackout:
         k0, nb = args.blackout.split(":")
         blackout = (int(k0), int(nb))
-    run(n_frames=n, fps=args.fps, circle=args.circle,
+    run(n_frames=n, fps=args.fps, plot=args.plot, circle=args.circle,
         circle_period=args.period, circle_radius=args.radius,
         n_features=args.features, threaded=args.threaded,
         device_render=args.device_render, eight=args.eight,

@@ -7,9 +7,11 @@ Jacobians (`:31-62`), `_se3_deriv`, `mono_residual[_jac]` and
 `stereo_residual[_jac]` (`:70-117`), the per-edge GP factors
 (`_gp_vertex_chains`, `mono_gp_residual[_jac]`, `stereo_gp_residual_jac`,
 `:125-233`), the pair and interpolation packs (`gp_pair_pack` `:254`,
-`gp_interp_pack` `:348`) and the interp-pack factors (`:371-419`). The
-packed variants (`:267-330`), which serve only the reference's segment-sum
-fallback of `make_ba_problem`, are not ported.
+`gp_interp_pack` `:348`), the packed factors that evaluate the chain per
+edge from a pair pack (`_gp_edge_core`, `_gp_jac_from_M`,
+`{mono,stereo}_gp_residual_jac_packed`, `:267-330`: the per-edge fallback of
+`make_ba_problem` without interp-combo tables) and the interp-pack factors
+(`:371-419`).
 
 Every function is batched over leading dimensions (the reference's `vmap`
 written out). Conventions: state pose Twb (body->world), world landmark Xw,
@@ -232,6 +234,59 @@ def gp_pair_pack(T1, v1, T2, v2):
     B2 = -0.5 * (ad_v2 @ Jr_inv)
     return {"xi12": xi12, "nu2": nu2, "Jr_inv": Jr_inv, "A1": A1,
             "B1": B1, "B2": B2}
+
+
+def _gp_edge_core(pack, T1, v1, t1, t2, t, Tbc, Xw):
+    """Shared per-edge geometry of the packed factors: the interpolated pose
+    from the pair pack, the point in body and camera frames and the
+    pair-pack scalar coefficients (a12, p11, p12)."""
+    _, a12, p11, p12 = gp.interp_coeffs(t1, t2, t)
+    dxi = a12[..., None] * v1 + p11[..., None] * pack["xi12"] + p12[..., None] * pack["nu2"]
+    dT = lie.exp_se3(dxi)
+    Twb = T1 @ dT
+    Tcb = lie.se3_inv(Tbc)
+    Xb = lie.transform_point(lie.se3_inv(Twb), Xw)
+    Xc = lie.transform_point(Tcb, Xb)
+    Ad_dT = lie.adj_se3(lie.se3_inv(dT))
+    Jr_dxi = lie.right_jacobian_pose3(dxi)
+    return (a12, p11, p12), Twb, Tcb, Xb, Xc, Ad_dT, Jr_dxi
+
+
+def _gp_jac_from_M(M, J1cam, Ad_dT, pack, coeffs):
+    """(J1, J2) from M = J1cam @ Jr(dxi): the scalar-block products
+    J1 = [p11 M A1 + p12 M B1 + J1cam Ad(dT^-1), a12 M],
+    J2 = [p11 M Jr_inv + p12 M B2, p12 M Jr_inv]."""
+    a12, p11, p12 = (c[..., None, None] for c in coeffs)
+    J1 = _cat([p11 * (M @ pack["A1"]) + p12 * (M @ pack["B1"]) + J1cam @ Ad_dT, a12 * M], -1)
+    MJr = M @ pack["Jr_inv"]
+    J2 = _cat([p11 * MJr + p12 * (M @ pack["B2"]), p12 * MJr], -1)
+    return J1, J2
+
+
+def mono_gp_residual_jac_packed(pack, T1, v1, t1, t2, t, Tbc, K, Xw, obs):
+    """EdgeMonoGP[Extrinsic] from a pair pack: (r, J1 (...,2,12),
+    J2 (...,2,12), J_point (...,2,3), J_ext (...,2,6), Xc), identical to
+    mono_gp_residual_jac."""
+    coeffs, Twb, Tcb, Xb, Xc, Ad_dT, Jr_dxi = _gp_edge_core(pack, T1, v1, t1, t2, t, Tbc, Xw)
+    r = obs - project_pinhole(K, Xc)
+    pj = project_jac_pinhole(K, Xc)
+    Rcb = Tcb[..., :3, :3]
+    J1cam = -(pj @ _se3_deriv(Rcb, Xb))
+    J1, J2 = _gp_jac_from_M(J1cam @ Jr_dxi, J1cam, Ad_dT, pack, coeffs)
+    J_point = -((pj @ Rcb) @ Twb[..., :3, :3].transpose(-1, -2))
+    return r, J1, J2, J_point, _ext_jac(pj, Xc), Xc
+
+
+def stereo_gp_residual_jac_packed(pack, T1, v1, t1, t2, t, Tbc, K, bf, Xw, obs):
+    """EdgeStereoGP from a pair pack: (r, J1, J2, J_point, Xc)."""
+    coeffs, Twb, Tcb, Xb, Xc, Ad_dT, Jr_dxi = _gp_edge_core(pack, T1, v1, t1, t2, t, Tbc, Xw)
+    r = obs - project_stereo(K, bf, Xc)
+    pj = project_jac_stereo(K, bf, Xc)
+    Rcb = Tcb[..., :3, :3]
+    J1cam = -(pj @ _se3_deriv(Rcb, Xb))
+    J1, J2 = _gp_jac_from_M(J1cam @ Jr_dxi, J1cam, Ad_dT, pack, coeffs)
+    J_point = -((pj @ Rcb) @ Twb[..., :3, :3].transpose(-1, -2))
+    return r, J1, J2, J_point, Xc
 
 
 def gp_interp_pack(pack, T1, v1, t1, t2, t):

@@ -1,9 +1,9 @@
 """Windowed local GP bundle adjustment with landmark Schur complement.
 
-Port of the table-driven path of `amcslam_tpu/solver/ba.py` (`:52-849`,
-`:1363-1621`, host-side tables `:1624-1862`): `Optimizer::LocalGPBA` and
-`GlobalBundleAdjustemnt` on the g2o-exact LM loop (solver/lm.py), and their
-abort-segmented variants, with
+Port of `amcslam_tpu/solver/ba.py` (`:52-1360`, `:1363-1621`, host-side
+tables `:1624-1862`): `Optimizer::LocalGPBA` and `GlobalBundleAdjustemnt`
+on the g2o-exact LM loop (solver/lm.py), their abort-segmented variants and
+the matrix-free PCG backend for at-scale global BA, with
 
   graph = { a window of pose-vel keyframes (anchors fixed), per-async-camera
             extrinsic vertices (fixed unless refined), landmarks
@@ -13,22 +13,22 @@ abort-segmented variants, with
             reprojections, GP-interpolated stereo reprojections,
             stereo-camera mono/stereo reprojections at KF timestamps }
 
-Residuals and Jacobians evaluate as one batch per edge family; the GP
-interpolation chain runs once per unique (structure, timestamp) combo
-through `ops/interp_chain.gp_interp_packs_indexed` (the CUDA kernel on the
-card, reading the endpoint states from the state tables by index);
-the pose Hessian assembles from 12x12 unit blocks; the Schur complement
-Hpp - W Hll^-1 W^T is two dense contractions; the reduced system is solved
-by Cholesky.
-
-Only the table-driven path is ported: `mg_it`/`sg_it` (interp-combo tables)
-and `lm_blk` (landmark gather tables) must be present, as the host-side
-table functions below and the synthetic generator emit them; the
-reference's per-edge and segment-sum fallbacks raise here.
+Residuals and Jacobians evaluate as one batch per edge family. With the
+interp-combo tables (`mg_it`/`sg_it`) the GP interpolation chain runs once
+per unique (structure, timestamp) combo through
+`ops/interp_chain.gp_interp_packs_indexed` (the CUDA kernel on the card,
+reading the endpoint states from the state tables by index); without them
+the chain runs per edge from per-structure pair packs (the packed factors).
+The pose Hessian assembles from 12x12 unit blocks. The landmark coupling Wt
+assembles from the landmark gather tables (`lm_blk`) when present, else by
+segment sums over (landmark, pose) keys. The dense solve forms the Schur
+complement Hpp - W Hll^-1 W^T and factors it by Cholesky;
+`make_ba_problem_pcg` never forms it and solves by preconditioned CG.
 
 TPU workarounds of the reference that are not ported:
   * `_onehot_gather` (one-hot matmul row gather) -> plain indexing (exact);
-  * the one-hot `seg_reduce` and the segment sums -> `index_add_`;
+  * the one-hot `seg_reduce`, the segment sums and the PCG's statically
+    sorted `_sorted_segment` (a TPU scatter-rate workaround) -> `index_add_`;
   * the compile cache, `exact`/`smm` and pow2 re-trace bucketing. The
     host-side table functions still emit the reference's bucketed shapes,
     so arrays compare one for one.
@@ -51,7 +51,7 @@ from ..factors import gp_prior, priors, reprojection
 from ..ops import gp, interp_chain, lie
 from ..utils.shapes import bucket_pow2
 from . import robust
-from .lm import LMCarry, LMProblem, LMStats, lm_init, lm_optimize, lm_segment
+from .lm import LMCarry, LMProblem, LMStats, _read, lm_init, lm_optimize, lm_segment
 
 CHI2_MONO = 5.991
 CHI2_STEREO = 7.815
@@ -157,15 +157,6 @@ def _inv3x3(A):
     return co / det[..., None, None]
 
 
-def _require_tables(table, what: str):
-    if table is None:
-        raise ValueError(
-            f"LocalBAData lacks the {what} tables: only the table-driven path "
-            "is ported (build them with build_interp_tables / "
-            "with_landmark_tables)"
-        )
-
-
 def _combo_ends(data: LocalBAData, sid_cols, it_sid):
     """Pose indices (i, j) of each combo's structure. The dump combo
     (structure 0) has i == j, so dt = 0: redirect j to keep it finite (the
@@ -174,6 +165,15 @@ def _combo_ends(data: LocalBAData, sid_cols, it_sid):
     j_u = sid_cols[it_sid, 12] // 12
     j_u = torch.where(j_u == i_u, torch.clamp(i_u + 1, max=data.n_poses - 1), j_u)
     return i_u, j_u
+
+
+def _pair_packs(state: BAState, sid_cols):
+    """Per-structure GP pair packs (factors/reprojection.gp_pair_pack): the
+    pose-pair part of the chain once per structure, gathered per edge by the
+    caller."""
+    i_s = sid_cols[:, 0] // 12
+    j_s = sid_cols[:, 12] // 12
+    return reprojection.gp_pair_pack(state.T[i_s], state.v[i_s], state.T[j_s], state.v[j_s])
 
 
 def _interp_packs(data: LocalBAData, state: BAState, sid_cols, it_sid, it_t):
@@ -210,13 +210,20 @@ def _mono_gp_eval(data: LocalBAData, state: BAState):
     if E == 0:
         z = lambda *s: data.mg_obs.new_zeros(s)  # noqa: E731
         return z(0, 2), z(0, 2, 12), z(0, 2, 12), z(0, 2, 3), z(0, 2, 6), z(0, 3)
-    _require_tables(data.mg_it, "mono-GP interp-combo")
-    ips = _interp_packs(data, state, data.mg_sid_cols, data.mg_it_sid, data.mg_it_t)
-    ip_e = {k: v[data.mg_it] for k, v in ips.items()}
     Text_all, K_all = _mono_cam_tables(data, state)
-    return reprojection.mono_gp_residual_jac_interp(
-        ip_e, Text_all[data.mg_cam], K_all[data.mg_cam], state.X[data.mg_lm],
-        data.mg_obs,
+    if data.mg_it is not None:
+        ips = _interp_packs(data, state, data.mg_sid_cols, data.mg_it_sid, data.mg_it_t)
+        ip_e = {k: v[data.mg_it] for k, v in ips.items()}
+        return reprojection.mono_gp_residual_jac_interp(
+            ip_e, Text_all[data.mg_cam], K_all[data.mg_cam], state.X[data.mg_lm],
+            data.mg_obs,
+        )
+    packs = _pair_packs(state, data.mg_sid_cols)
+    pack_e = {k: v[data.mg_sid] for k, v in packs.items()}
+    i, j = data.mg_pair[:, 0], data.mg_pair[:, 1]
+    return reprojection.mono_gp_residual_jac_packed(
+        pack_e, state.T[i], state.v[i], data.times[i], data.times[j], data.mg_t,
+        Text_all[data.mg_cam], K_all[data.mg_cam], state.X[data.mg_lm], data.mg_obs,
     )
 
 
@@ -225,12 +232,19 @@ def _stereo_gp_eval(data: LocalBAData, state: BAState):
     if E == 0:
         z = lambda *s: data.sg_obs.new_zeros(s)  # noqa: E731
         return z(0, 3), z(0, 3, 12), z(0, 3, 12), z(0, 3, 3), z(0, 3)
-    _require_tables(data.sg_it, "stereo-GP interp-combo")
-    ips = _interp_packs(data, state, data.sg_sid_cols, data.sg_it_sid, data.sg_it_t)
-    ip_e = {k: v[data.sg_it] for k, v in ips.items()}
-    return reprojection.stereo_gp_residual_jac_interp(
-        ip_e, data.Tbc_stereo, data.K_stereo, data.bf, state.X[data.sg_lm],
-        data.sg_obs,
+    if data.sg_it is not None:
+        ips = _interp_packs(data, state, data.sg_sid_cols, data.sg_it_sid, data.sg_it_t)
+        ip_e = {k: v[data.sg_it] for k, v in ips.items()}
+        return reprojection.stereo_gp_residual_jac_interp(
+            ip_e, data.Tbc_stereo, data.K_stereo, data.bf, state.X[data.sg_lm],
+            data.sg_obs,
+        )
+    packs = _pair_packs(state, data.sg_sid_cols)
+    pack_e = {k: v[data.sg_sid] for k, v in packs.items()}
+    i, j = data.sg_pair[:, 0], data.sg_pair[:, 1]
+    return reprojection.stereo_gp_residual_jac_packed(
+        pack_e, state.T[i], state.v[i], data.times[i], data.times[j], data.sg_t,
+        data.Tbc_stereo, data.K_stereo, data.bf, state.X[data.sg_lm], data.sg_obs,
     )
 
 
@@ -260,23 +274,38 @@ def _mono_gp_residuals(data: LocalBAData, state: BAState):
     """Residual-only async-camera GP evaluation (chi2 path)."""
     if data.mg_obs.shape[0] == 0:
         return data.mg_obs.new_zeros((0, 2))
-    _require_tables(data.mg_it, "mono-GP interp-combo")
-    Tbw_u = _interp_poses(data, state, data.mg_sid_cols, data.mg_it_sid, data.mg_it_t)
     Text_all, K_all = _mono_cam_tables(data, state)
-    return reprojection.mono_gp_residual_interp(
-        Tbw_u[data.mg_it], Text_all[data.mg_cam], K_all[data.mg_cam],
-        state.X[data.mg_lm], data.mg_obs,
+    if data.mg_it is not None:
+        Tbw_u = _interp_poses(data, state, data.mg_sid_cols, data.mg_it_sid, data.mg_it_t)
+        return reprojection.mono_gp_residual_interp(
+            Tbw_u[data.mg_it], Text_all[data.mg_cam], K_all[data.mg_cam],
+            state.X[data.mg_lm], data.mg_obs,
+        )
+    i, j = data.mg_pair[:, 0], data.mg_pair[:, 1]
+    r, _ = reprojection.mono_gp_residual(
+        state.T[i], state.v[i], data.times[i], state.T[j], state.v[j], data.times[j],
+        data.mg_t, Text_all[data.mg_cam], K_all[data.mg_cam], state.X[data.mg_lm],
+        data.mg_obs,
     )
+    return r
 
 
 def _stereo_gp_residuals(data: LocalBAData, state: BAState):
     if data.sg_obs.shape[0] == 0:
         return data.sg_obs.new_zeros((0, 3))
-    _require_tables(data.sg_it, "stereo-GP interp-combo")
-    Tbw_u = _interp_poses(data, state, data.sg_sid_cols, data.sg_it_sid, data.sg_it_t)
+    if data.sg_it is not None:
+        Tbw_u = _interp_poses(data, state, data.sg_sid_cols, data.sg_it_sid, data.sg_it_t)
+        Tbw_e = Tbw_u[data.sg_it]
+    else:
+        i, j = data.sg_pair[:, 0], data.sg_pair[:, 1]
+        eye = torch.eye(6, dtype=state.T.dtype, device=state.T.device)
+        Twb, _ = gp.query_pose_aux(
+            state.T[i], state.T[j], state.v[i], state.v[j],
+            data.times[i], data.times[j], data.sg_t, eye, eye,
+        )
+        Tbw_e = lie.se3_inv(Twb)
     return reprojection.stereo_gp_residual_interp(
-        Tbw_u[data.sg_it], data.Tbc_stereo, data.K_stereo, data.bf,
-        state.X[data.sg_lm], data.sg_obs,
+        Tbw_e, data.Tbc_stereo, data.K_stereo, data.bf, state.X[data.sg_lm], data.sg_obs,
     )
 
 
@@ -329,7 +358,6 @@ def make_ba_problem(
     # (3,12) tile; inactive columns get identity rows in the damped system.
     G = K + Cx
     P = 12 * G
-    _require_tables(data.lm_blk, "landmark gather")
     zero = torch.zeros((), dtype=dtype, device=dev)
 
     pose_act = (~data.pose_fixed).to(dtype)
@@ -352,11 +380,13 @@ def make_ba_problem(
     u8 = (arange12 == 8).to(dtype)
     colK = 12 * torch.arange(K, device=dev)[:, None] + arange12[None, :]
     colE = 12 * K + 12 * torch.arange(Cx, device=dev)[:, None] + torch.arange(6, device=dev)[None, :]
-    # landmark gather tables -> flat index lists, once per problem
-    L = data.lm_blk.shape[0]
-    blk_keys = (torch.arange(L, device=dev)[:, None] * G + data.lm_blk_g)[data.lm_blk_valid]
-    blk_rows = data.lm_blk[data.lm_blk_valid]
-    edge_valid = data.lm_edge_valid[..., None].to(dtype)
+    use_tab = data.lm_blk is not None
+    if use_tab:
+        # landmark gather tables -> flat index lists, once per problem
+        L = data.lm_blk.shape[0]
+        blk_keys = (torch.arange(L, device=dev)[:, None] * G + data.lm_blk_g)[data.lm_blk_valid]
+        blk_rows = data.lm_blk[data.lm_blk_valid]
+        edge_valid = data.lm_edge_valid[..., None].to(dtype)
 
     def chi2(state: BAState):
         r_m = _mono_gp_residuals(data, state)
@@ -387,11 +417,21 @@ def make_ba_problem(
     def linearize(state: BAState):
         # pose-Hessian contributions: (segment blocks (S,30,30), (S,30), cols)
         seg_H, seg_b, seg_cols = [], [], []
-        # landmark-coupling (3,12) blocks, in make_landmark_tables order:
-        # [mono-i | mono-j | mono-ext | sg-i | sg-j | st]
+        # with the gather tables: landmark-coupling (3,12) blocks, in
+        # make_landmark_tables order [mono-i | mono-j | mono-ext | sg-i |
+        # sg-j | st], and landmark-system rows [Hll 9 | bl 3] in order
+        # [mono | sg | st]
         blk36 = []
-        # landmark-system rows [Hll 9 | bl 3], in order [mono | sg | st]
         edge12 = []
+        # without them: (3,12) blocks keyed landmark * K + pose, the (3,6)
+        # extrinsic blocks keyed landmark * Cx + camera, and Hll/bl summed
+        # per landmark
+        wp_rows, wp_keys = [], []
+        if not use_tab:
+            Ls = state.X.shape[0]
+            We = state.X.new_zeros((Ls * Cx, 3, 6))
+            Hll_s = state.X.new_zeros((Ls, 3, 3))
+            bl_s = state.X.new_zeros((Ls, 3))
 
         def add_seg(Hs, bs, cols):
             w_ = Hs.shape[1]
@@ -404,11 +444,21 @@ def make_ba_problem(
             bs = bblk.new_zeros((n_sid,) + bblk.shape[1:]).index_add_(0, sid, bblk)
             return Hs, bs
 
-        def add_lm(JlW, Jl, r):
+        def add_lm(JlW, Jl, r, lm):
             E = r.shape[0]
-            Hll_e = _gram(JlW, Jl).reshape(E, 9)
+            Hll_e = _gram(JlW, Jl)
             bl_e = -(JlW * r[:, :, None]).sum(1)
-            edge12.append(torch.cat([Hll_e, bl_e], 1))
+            if use_tab:
+                edge12.append(torch.cat([Hll_e.reshape(E, 9), bl_e], 1))
+            else:
+                Hll_s.index_add_(0, lm, Hll_e)
+                bl_s.index_add_(0, lm, bl_e)
+
+        def add_w(Wblk, lm, poses):
+            """(E,3,12) coupling blocks of the edges' landmarks and poses,
+            for the segment-sum Wt assembly."""
+            wp_rows.append(Wblk)
+            wp_keys.append(lm * K + poses)
 
         # ===== async-camera GP mono edges =====
         r, J1, J2, Jl, Jext, _ = _mono_gp_eval(data, state)
@@ -429,10 +479,19 @@ def make_ba_problem(
         add_seg(Hs, bs, data.mg_sid_cols)
         JlW = Jl * w[:, None, None]  # (E,2,3)
         Wblk = _gram(JlW, Jp)  # (E,3,30)
-        blk36.append(Wblk[:, :, :12].reshape(Em, 36))
-        blk36.append(Wblk[:, :, 12:24].reshape(Em, 36))
-        blk36.append(F.pad(Wblk[:, :, 24:30], (0, 6)).reshape(Em, 36))
-        add_lm(JlW, Jl, r)
+        if use_tab:
+            blk36.append(Wblk[:, :, :12].reshape(Em, 36))
+            blk36.append(Wblk[:, :, 12:24].reshape(Em, 36))
+            blk36.append(F.pad(Wblk[:, :, 24:30], (0, 6)).reshape(Em, 36))
+        else:
+            add_w(Wblk[:, :, :12], data.mg_lm, i_)
+            add_w(Wblk[:, :, 12:24], data.mg_lm, j_)
+            if Cx:
+                # the stereo row (c_ == Cx) has zero blocks: clamp its key
+                # in bounds rather than alias it into the next landmark
+                We.index_add_(0, data.mg_lm * Cx + torch.clamp(c_, max=Cx - 1),
+                              Wblk[:, :, 24:30])
+        add_lm(JlW, Jl, r, data.mg_lm)
 
         # ===== GP stereo edges =====
         r, J1, J2, Jl, _ = _stereo_gp_eval(data, state)
@@ -451,9 +510,13 @@ def make_ba_problem(
         add_seg(Hs, bs, data.sg_sid_cols)
         JlW = Jl * w[:, None, None]
         Wblk = _gram(JlW, Jp)
-        blk36.append(Wblk[:, :, :12].reshape(Eg, 36))
-        blk36.append(Wblk[:, :, 12:24].reshape(Eg, 36))
-        add_lm(JlW, Jl, r)
+        if use_tab:
+            blk36.append(Wblk[:, :, :12].reshape(Eg, 36))
+            blk36.append(Wblk[:, :, 12:24].reshape(Eg, 36))
+        else:
+            add_w(Wblk[:, :, :12], data.sg_lm, i_)
+            add_w(Wblk[:, :, 12:24], data.sg_lm, j_)
+        add_lm(JlW, Jl, r, data.sg_lm)
 
         # ===== stereo-camera KF edges =====
         r, J3, Jl, _ = _stereo_eval(data, state)
@@ -468,8 +531,11 @@ def make_ba_problem(
         Hs, bs = seg_reduce(_gram(JpW, J3), -(JpW * r[:, :, None]).sum(1), p_, K)
         add_seg(Hs, bs, colK)
         JlW = Jl * w[:, None, None]
-        blk36.append(_gram(JlW, J3).reshape(Es, 36))
-        add_lm(JlW, Jl, r)
+        if use_tab:
+            blk36.append(_gram(JlW, J3).reshape(Es, 36))
+        else:
+            add_w(_gram(JlW, J3), data.st_lm, p_)
+        add_lm(JlW, Jl, r, data.st_lm)
 
         # ===== GP prior chain (each edge its own segment) =====
         r, J1, J2 = _gp_chain_eval(data, state)
@@ -516,6 +582,14 @@ def make_ba_problem(
         bp = bp + torch.cat([(-(wv * state.v[:, 2])[:, None] * u8).reshape(-1), zext])
 
         # ===== landmark side =====
+        if not use_tab:
+            Wp = state.X.new_zeros((Ls * K, 3, 12)).index_add_(
+                0, torch.cat(wp_keys), torch.cat(wp_rows))
+            Wt = Wp.reshape(Ls, K, 3, 12).permute(0, 2, 1, 3).reshape(Ls, 3, 12 * K)
+            if Cx:
+                Wt_ext = F.pad(We.reshape(Ls, Cx, 3, 6), (0, 6))
+                Wt = torch.cat([Wt, Wt_ext.permute(0, 2, 1, 3).reshape(Ls, 3, 12 * Cx)], 2)
+            return (Hpp, bp, Wt, Hll_s, bl_s)
         blk_vals = torch.cat(blk36, 0)  # (B,36)
         Wt = blk_vals.new_zeros((L * G, 36)).index_add_(0, blk_keys, blk_vals[blk_rows])
         Wt = Wt.reshape(L, G, 3, 12).permute(0, 2, 1, 3).reshape(L, 3, P)
@@ -562,6 +636,339 @@ def make_ba_problem(
         )
 
     return LMProblem(chi2, linearize, max_abs_diag, solve, retract)
+
+
+class PCGStep(NamedTuple):
+    """The step of `make_ba_problem_pcg`'s solve: the pose, extrinsic and
+    landmark increments (the reference's (x12, xe, dxl)), the CG steps it
+    took and its final relative residual r.r / max(b.b, 1e-30), both read
+    on the host as `sim3_opt._pcg` returns them."""
+
+    dxp: torch.Tensor   # (K,12)
+    dxe: torch.Tensor   # (Cx,6)
+    dxl: torch.Tensor   # (L,3)
+    cg_steps: int
+    rel_res: float
+
+
+def make_ba_problem_pcg(
+    data: LocalBAData,
+    lvl_m,
+    lvl_sg,
+    lvl_st,
+    huber_on: bool = True,
+    ext_active=None,
+    pcg_iters: int = 200,
+    pcg_tol: float = 1e-10,
+    precond: str = "jacobi",
+) -> LMProblem:
+    """Matrix-free Schur-complement BA for at-scale keyframe counts (g2o's
+    LinearSolverEigen of the global BA, Optimizer.cc:70): neither the PxP
+    reduced pose system nor the (L,3,P) coupling is formed. The Schur
+    product
+
+        S x = Hpp x - W Hll^-1 W^T x
+
+    evaluates edge by edge: Hpp x as J_e^T w_e (J_e x[cols_e]) with segment
+    sums (`index_add_`), W^T x by reducing Jl_e^T w_e (J_e x[cols_e]) per
+    landmark, W z by gathering z at each edge's landmark. Preconditioner
+    `precond`: "jacobi" inverts the per-vertex 12x12 (pose) / 6x6
+    (extrinsic) diagonal blocks of Hpp; "schur_jacobi" those of S, with each
+    edge's W Hll^-1 W^T share subtracted. Memory is O(E + L + K).
+
+    The CG loop is the reference's `while_loop`: its exit condition (step <
+    pcg_iters and r.r > pcg_tol * max(b.b, 1e-30)) is evaluated on the
+    device and read once per step, so it ends after the reference's number
+    of steps. `solve(lin, lam, x0=None)` returns a `PCGStep`; `x0 = (x12,
+    xe)` warm-starts the iteration. chi2 is the dense problem's, which
+    allocates nothing of size P^2."""
+    if precond not in ("jacobi", "schur_jacobi"):
+        raise ValueError(f"precond must be 'jacobi' or 'schur_jacobi', not {precond!r}")
+    dtype = data.mg_obs.dtype
+    dev = data.mg_obs.device
+    K = data.n_poses
+    Cx = data.n_ext
+    zero = torch.zeros((), dtype=dtype, device=dev)
+    tiny = torch.tensor(1e-30, dtype=dtype, device=dev)
+    eye3 = torch.eye(3, dtype=dtype, device=dev)
+    eye6 = torch.eye(6, dtype=dtype, device=dev)
+    eye12 = torch.eye(12, dtype=dtype, device=dev)
+    u8 = (torch.arange(12, device=dev) == 8).to(dtype)
+
+    pose_act = (~data.pose_fixed).to(dtype)
+    ext_act = (~data.ext_fixed if ext_active is None else ext_active.to(torch.bool)).to(dtype)
+    ext_act1 = torch.cat([ext_act, zero[None]])  # mg_cam == Cx: the stereo row
+
+    act_m = data.mg_valid & lvl_m
+    act_sg = data.sg_valid & lvl_sg
+    act_st = data.st_valid & lvl_st
+    th_mono = torch.as_tensor(TH_HUBER_MONO, dtype=dtype, device=dev)
+    th_stereo = torch.as_tensor(TH_HUBER_STEREO, dtype=dtype, device=dev)
+    delta_st = torch.where(data.st_is_stereo, th_stereo, th_mono)
+
+    im, jm, cm, lm_m = data.mg_pair[:, 0], data.mg_pair[:, 1], data.mg_cam, data.mg_lm
+    ig, jg, lm_g = data.sg_pair[:, 0], data.sg_pair[:, 1], data.sg_lm
+    p_, lm_s = data.st_pose, data.st_lm
+    ip, jp = data.gp_pairs[:, 0], data.gp_pairs[:, 1]
+
+    def seg(idx, vals, n):
+        return vals.new_zeros((n,) + vals.shape[1:]).index_add_(0, idx, vals)
+
+    def jtv(J, v):
+        """J^T v per edge: (E,r,c), (E,r) -> (E,c)."""
+        return torch.einsum("erc,er->ec", J, v)
+
+    def jx(J, x):
+        """J x per edge: (E,r,c), (E,c) -> (E,r)."""
+        return torch.einsum("erc,ec->er", J, x)
+
+    def gram_w(J, w):
+        """J^T diag(w) J per edge."""
+        return torch.einsum("eri,e,erj->eij", J, w, J)
+
+    chi2 = make_ba_problem(data, lvl_m, lvl_sg, lvl_st, huber_on=huber_on,
+                           ext_active=ext_active).chi2
+
+    def linearize(state: BAState):
+        L = state.X.shape[0]
+
+        # ===== async-camera GP mono edges =====
+        r_m, J1m, J2m, Jlm, Jem, _ = _mono_gp_eval(data, state)
+        r_m, J1m, J2m, Jlm, Jem = _masked(act_m, r_m, J1m, J2m, Jlm, Jem)
+        s = (r_m * r_m).sum(-1) * data.mg_w
+        _, rho1 = robust.huber_rho01(s, th_mono, huber_on)
+        w_m = torch.where(act_m, data.mg_w * rho1, zero)
+        J1m = J1m * pose_act[im][:, None, None]
+        J2m = J2m * pose_act[jm][:, None, None]
+        Jem = Jem * ext_act1[cm][:, None, None]
+        wr = w_m[:, None] * r_m
+        bp12 = -seg(im, jtv(J1m, wr), K) - seg(jm, jtv(J2m, wr), K)
+        D12 = seg(im, gram_w(J1m, w_m), K) + seg(jm, gram_w(J2m, w_m), K)
+        if Cx:
+            bext = -seg(cm, jtv(Jem, wr), Cx)
+            Dext = seg(cm, gram_w(Jem, w_m), Cx)
+        else:
+            bext = state.X.new_zeros((0, 6))
+            Dext = state.X.new_zeros((0, 6, 6))
+        JlWm = Jlm * w_m[:, None, None]
+        Hll = seg(lm_m, torch.einsum("eri,erj->eij", JlWm, Jlm), L)
+        bl = -seg(lm_m, torch.einsum("eri,er->ei", JlWm, r_m), L)
+
+        # ===== GP stereo edges =====
+        r_g, J1g, J2g, Jlg, _ = _stereo_gp_eval(data, state)
+        r_g, J1g, J2g, Jlg = _masked(act_sg, r_g, J1g, J2g, Jlg)
+        s = (r_g * r_g).sum(-1) * data.sg_w
+        _, rho1 = robust.huber_rho01(s, th_stereo, huber_on)
+        w_g = torch.where(act_sg, data.sg_w * rho1, zero)
+        J1g = J1g * pose_act[ig][:, None, None]
+        J2g = J2g * pose_act[jg][:, None, None]
+        wr = w_g[:, None] * r_g
+        bp12 = bp12 - seg(ig, jtv(J1g, wr), K) - seg(jg, jtv(J2g, wr), K)
+        D12 = D12 + seg(ig, gram_w(J1g, w_g), K) + seg(jg, gram_w(J2g, w_g), K)
+        JlWg = Jlg * w_g[:, None, None]
+        Hll = Hll + seg(lm_g, torch.einsum("eri,erj->eij", JlWg, Jlg), L)
+        bl = bl - seg(lm_g, torch.einsum("eri,er->ei", JlWg, r_g), L)
+
+        # ===== stereo-camera KF edges =====
+        r_s, J3, Jls, _ = _stereo_eval(data, state)
+        r_s, J3, Jls = _masked(act_st, r_s, J3, Jls)
+        s = (r_s * r_s).sum(-1) * data.st_w
+        _, rho1 = robust.huber_rho01(s, delta_st, huber_on)
+        w_s = torch.where(act_st, data.st_w * rho1, zero)
+        J3 = J3 * pose_act[p_][:, None, None]
+        wr = w_s[:, None] * r_s
+        bp12 = bp12 - seg(p_, jtv(J3, wr), K)
+        D12 = D12 + seg(p_, gram_w(J3, w_s), K)
+        JlWs = Jls * w_s[:, None, None]
+        Hll = Hll + seg(lm_s, torch.einsum("eri,erj->eij", JlWs, Jls), L)
+        bl = bl - seg(lm_s, torch.einsum("eri,er->ei", JlWs, r_s), L)
+
+        # ===== GP prior chain =====
+        r_p, J1p, J2p = _gp_chain_eval(data, state)
+        r_p, J1p, J2p = _masked(data.gp_valid, r_p, J1p, J2p)
+        s = torch.einsum("ei,eij,ej->e", r_p, data.gp_qi_inv, r_p)
+        _, rho1 = robust.huber_rho01(s, TH_HUBER_GP, data.gp_huber)
+        wg = torch.where(data.gp_valid, rho1, zero)
+        J1p = J1p * pose_act[ip][:, None, None]
+        J2p = J2p * pose_act[jp][:, None, None]
+        Om = data.gp_qi_inv * wg[:, None, None]  # (Ng,12,12)
+        OJ1, OJ2 = Om @ J1p, Om @ J2p
+        bp12 = (bp12 - seg(ip, torch.einsum("eab,ea->eb", OJ1, r_p), K)
+                - seg(jp, torch.einsum("eab,ea->eb", OJ2, r_p), K))
+        D12 = (D12 + seg(ip, torch.einsum("eab,eac->ebc", OJ1, J1p), K)
+               + seg(jp, torch.einsum("eab,eac->ebc", OJ2, J2p), K))
+
+        # ===== velocity edges (diagonal) =====
+        wv = torch.where(data.vel_valid, data.qcinv22, zero) * pose_act
+        D12 = D12 + eye12 * (wv[:, None] * u8)[:, None, :]
+        bp12 = bp12 - (wv * state.v[:, 2])[:, None] * u8
+
+        # ===== extrinsic priors =====
+        if Cx:
+            r_e = priors.extrinsic_prior_residual(state.Text, data.R_prior)
+            J_e = priors.extrinsic_prior_jac(state.Text, data.R_prior) * ext_act[:, None, None]
+            JW_e = data.ext_info @ J_e
+            Hext_prior = torch.einsum("cri,crj->cij", JW_e, J_e)
+            Dext = Dext + Hext_prior
+            bext = bext - torch.einsum("cri,cr->ci", JW_e, r_e)
+        else:
+            Hext_prior = state.X.new_zeros((0, 6, 6))
+
+        edges = ((J1m, J2m, Jem, Jlm, w_m), (J1g, J2g, Jlg, w_g), (J3, Jls, w_s),
+                 (J1p, J2p, Om))
+        return edges, Hll, bl, bp12, bext, D12, Dext, wv, Hext_prior
+
+    def max_abs_diag(lin):
+        _, Hll, _, _, _, D12, Dext, _, _ = lin
+        m = (torch.diagonal(D12, dim1=-2, dim2=-1).abs() * pose_act[:, None]).max()
+        m = torch.maximum(m, torch.diagonal(Hll, dim1=-2, dim2=-1).abs().max())
+        if Cx:
+            m = torch.maximum(
+                m, (torch.diagonal(Dext, dim1=-2, dim2=-1).abs() * ext_act[:, None]).max())
+        return m
+
+    def solve(lin, lam, x0=None):
+        edges, Hll, bl, bp12, bext, D12, Dext, wv, Hext_prior = lin
+        (J1m, J2m, Jem, Jlm, w_m), (J1g, J2g, Jlg, w_g), (J3, Jls, w_s), (J1p, J2p, Om) = edges
+        L = Hll.shape[0]
+        Hll_inv = _inv3x3(Hll + lam * eye3)
+        damp12 = lam * pose_act + (1.0 - pose_act)
+        dampe = lam * ext_act + (1.0 - ext_act)
+
+        def edge_u(xp, xe):
+            """J_p x per edge for the three landmark families."""
+            u_m = jx(J1m, xp[im]) + jx(J2m, xp[jm])
+            if Cx:
+                u_m = u_m + jx(Jem, xe[cm])
+            return u_m, jx(J1g, xp[ig]) + jx(J2g, xp[jg]), jx(J3, xp[p_])
+
+        def scatter_back(v_m, v_g, v_s):
+            """J_p^T v accumulated onto the vertices (v already weighted)."""
+            g12 = (seg(im, jtv(J1m, v_m), K) + seg(jm, jtv(J2m, v_m), K)
+                   + seg(ig, jtv(J1g, v_g), K) + seg(jg, jtv(J2g, v_g), K)
+                   + seg(p_, jtv(J3, v_s), K))
+            ge = seg(cm, jtv(Jem, v_m), Cx) if Cx else v_m.new_zeros((0, 6))
+            return g12, ge
+
+        def lm_reduce(wu_m, wu_g, wu_s):
+            """Jl^T (w J_p x) summed per landmark: W^T x."""
+            return (seg(lm_m, torch.einsum("eri,er->ei", Jlm, wu_m), L)
+                    + seg(lm_g, torch.einsum("eri,er->ei", Jlg, wu_g), L)
+                    + seg(lm_s, torch.einsum("eri,er->ei", Jls, wu_s), L))
+
+        def W_z(z):
+            """W z: per-vertex accumulation of J_p^T w Jl z[lm]."""
+            return scatter_back(w_m[:, None] * jx(Jlm, z[lm_m]),
+                                w_g[:, None] * jx(Jlg, z[lm_g]),
+                                w_s[:, None] * jx(Jls, z[lm_s]))
+
+        def Sx(xp, xe):
+            """S x for the pose and extrinsic blocks; the weighted edge
+            products feed both the Hpp x scatter and W^T x."""
+            u_m, u_g, u_s = edge_u(xp, xe)
+            wu_m, wu_g, wu_s = w_m[:, None] * u_m, w_g[:, None] * u_g, w_s[:, None] * u_s
+            g12, ge = scatter_back(wu_m, wu_g, wu_s)
+            # GP chain: no landmark part, full 12x12 information
+            Ot = torch.einsum("eab,eb->ea", Om, jx(J1p, xp[ip]) + jx(J2p, xp[jp]))
+            g12 = g12 + seg(ip, jtv(J1p, Ot), K) + seg(jp, jtv(J2p, Ot), K)
+            g12 = g12 + (wv * xp[:, 8])[:, None] * u8
+            if Cx:
+                ge = ge + torch.einsum("cij,cj->ci", Hext_prior, xe)
+            z = torch.einsum("lab,lb->la", Hll_inv, lm_reduce(wu_m, wu_g, wu_s))
+            c12, ce = W_z(z)
+            g12 = g12 - c12 + damp12[:, None] * xp
+            if Cx:
+                ge = ge - ce + dampe[:, None] * xe
+            return g12, ge
+
+        # right-hand side: bs = bp - W Hll^-1 bl
+        c12, ce = W_z(torch.einsum("lab,lb->la", Hll_inv, bl))
+        bs12 = bp12 - c12
+        bse = bext - ce if Cx else bext
+
+        def schur_diag_sub(Jp, Jl, w, lm_idx, idx, n):
+            A = torch.einsum("eri,e,erj->eij", Jp, w, Jl)  # (E,d,3)
+            return seg(idx, (A @ Hll_inv[lm_idx]) @ A.transpose(1, 2), n)
+
+        Dblk = D12
+        if precond == "schur_jacobi":
+            Dblk = D12 - (schur_diag_sub(J1m, Jlm, w_m, lm_m, im, K)
+                          + schur_diag_sub(J2m, Jlm, w_m, lm_m, jm, K)
+                          + schur_diag_sub(J1g, Jlg, w_g, lm_g, ig, K)
+                          + schur_diag_sub(J2g, Jlg, w_g, lm_g, jg, K)
+                          + schur_diag_sub(J3, Jls, w_s, lm_s, p_, K))
+        P12 = torch.linalg.inv(Dblk + eye12 * damp12[:, None, None])
+        if Cx:
+            Ce = (schur_diag_sub(Jem, Jlm, w_m, lm_m, cm, Cx) if precond == "schur_jacobi"
+                  else torch.zeros_like(Dext))
+            Pe = torch.linalg.inv(Dext - Ce + eye6 * dampe[:, None, None])
+
+        def apply_precond(r12, re):
+            z12 = torch.einsum("kab,kb->ka", P12, r12)
+            return z12, (torch.einsum("cab,cb->ca", Pe, re) if Cx else re)
+
+        def dot(a12, ae, b12, be):
+            d = (a12 * b12).sum()
+            return d + (ae * be).sum() if Cx else d
+
+        if x0 is None:
+            x12, xe = torch.zeros_like(bp12), torch.zeros_like(bext)
+            r12, re = bs12, bse
+        else:
+            x12, xe = x0
+            Sx12, Sxe = Sx(x12, xe)
+            r12 = bs12 - Sx12
+            re = bse - Sxe if Cx else bse
+        z12, ze = apply_precond(r12, re)
+        p12, pe = z12, ze
+        rz = dot(r12, re, z12, ze)
+        bnorm = torch.maximum(dot(bs12, bse, bs12, bse), tiny)
+        it = 0
+        while True:
+            rr = dot(r12, re, r12, re)
+            go, rel = _read(torch.stack([(rr > pcg_tol * bnorm).to(dtype), rr / bnorm]))
+            if not (it < pcg_iters and go):
+                break
+            Hp12, Hpe = Sx(p12, pe)
+            alpha = rz / torch.maximum(dot(p12, pe, Hp12, Hpe), tiny)
+            x12 = x12 + alpha * p12
+            xe = xe + alpha * pe
+            r12 = r12 - alpha * Hp12
+            re = re - alpha * Hpe
+            z12, ze = apply_precond(r12, re)
+            rz_new = dot(r12, re, z12, ze)
+            beta = rz_new / torch.maximum(rz, tiny)
+            p12, pe = z12 + beta * p12, ze + beta * pe
+            rz = rz_new
+            it += 1
+
+        # landmark back-substitution
+        u_m, u_g, u_s = edge_u(x12, xe)
+        y = lm_reduce(w_m[:, None] * u_m, w_g[:, None] * u_g, w_s[:, None] * u_s)
+        dxl = torch.einsum("lab,lb->la", Hll_inv, bl - y)
+        dot_xx = (x12 * x12).sum() + (dxl * dxl).sum()
+        dot_xb = (x12 * bp12).sum() + (dxl * bl).sum()
+        if Cx:
+            dot_xx = dot_xx + (xe * xe).sum()
+            dot_xb = dot_xb + (xe * bext).sum()
+        return PCGStep(x12, xe, dxl, it, rel), dot_xx, dot_xb
+
+    def retract(state: BAState, dx):
+        dxp, dxe, dxl = dx[:3]
+        Text = state.Text @ lie.exp_se3(dxe) if Cx else state.Text
+        return BAState(T=state.T @ lie.exp_se3(dxp[:, :6]), v=state.v + dxp[:, 6:],
+                       Text=Text, X=state.X + dxl)
+
+    return LMProblem(chi2, linearize, max_abs_diag, solve, retract)
+
+
+def global_ba_pcg(data: LocalBAData, state: BAState, num_iterations: int = 10):
+    """global_ba with the matrix-free PCG backend (ba.py:1353-1360): the same
+    semantics in O(E) memory, for keyframe counts where the dense reduced
+    system is out of reach. Returns (state, LMStats)."""
+    problem = make_ba_problem_pcg(data, data.mg_valid, data.sg_valid, data.st_valid,
+                                  huber_on=True)
+    return lm_optimize(problem, state, num_iterations, lambda_init=1e-5)
 
 
 class LocalBAResult(NamedTuple):

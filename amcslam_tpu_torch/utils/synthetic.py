@@ -1,9 +1,9 @@
 """Synthetic pose-solve, local-BA, sequence and loop problems (port of
 `amcslam_tpu/utils/synthetic.py`: `_np_exp_se3`, `make_rig`,
 `make_pose_problem`, `make_local_ba_problem`, `make_sequence`,
-`make_essential_graph`), and `build_loop_map`, a copy of the reference's
-drifted-loop test map (`tests/test_loop_closing.py:13-121`) on the port's
-map store.
+`make_vi_ba_synthetic`, `make_essential_graph`), and `build_loop_map`, a
+copy of the reference's drifted-loop test map
+(`tests/test_loop_closing.py:13-121`) on the port's map store.
 
 The generator is the reference's numpy code, draw for draw from
 `np.random.RandomState(seed)`, so for the same arguments it emits the same
@@ -548,6 +548,134 @@ def make_sequence(
             )
         )
     return frames, rig, Ts, (X, descs)
+
+
+def make_vi_ba_synthetic_numpy(n_kf=20, n_lm=500, steps_per_kf=40, imu_dt=0.005,
+                               noise_px=0.3, seed=0):
+    """A visual-inertial BA instance (config 4 of BASELINE.md) as numpy
+    arrays, draw for draw the reference's `make_vi_ba_synthetic`
+    (synthetic.py:519-650): n_kf inertial keyframes on a smooth accelerating
+    trajectory, IMU preintegration factors between consecutive keyframes
+    and mono reprojection edges to n_lm landmarks. The windows preintegrate
+    with the port's `ops/imu.preintegrate` on the CPU in float64 (all
+    windows in one batch).
+
+    Returns (data, state0, gt): field name -> array mappings of VIBAData
+    (`pre` a mapping of PreintState fields), the perturbed VIBAState and the
+    true one."""
+    from ..ops import imu
+
+    rng = np.random.RandomState(seed)
+    G = np.array([0.0, 0.0, -9.81])
+    w_body = np.array([0.25, -0.15, 0.4])
+
+    def a_world(t):
+        return np.array([0.4 * np.sin(2 * t), 0.2 * np.cos(1.3 * t), 0.1 * np.cos(t)])
+
+    n_steps = steps_per_kf * (n_kf - 1)
+    R = np.eye(3)
+    p = np.zeros(3)
+    v = np.array([1.0, 0.0, 0.2])
+    Rs, ps, vs, gyro, acc = [R.copy()], [p.copy()], [v.copy()], [], []
+    for k in range(n_steps):
+        a_w = a_world(k * imu_dt)
+        gyro.append(w_body.copy())
+        acc.append(R.T @ (a_w - G))
+        p = p + v * imu_dt + 0.5 * a_w * imu_dt * imu_dt
+        v = v + a_w * imu_dt
+        R = R @ _np_exp_se3(np.r_[np.zeros(3), w_body * imu_dt])[:3, :3]
+        Rs.append(R.copy())
+        ps.append(p.copy())
+        vs.append(v.copy())
+    acc, gyro = np.array(acc), np.array(gyro)
+    Rs, ps, vs = np.array(Rs), np.array(ps), np.array(vs)
+    kf_idx = np.arange(n_kf) * steps_per_kf
+
+    f64 = torch.float64
+    n_win = n_kf - 1
+    pre = imu.preintegrate(
+        torch.tensor(acc.reshape(n_win, steps_per_kf, 3), dtype=f64),
+        torch.tensor(gyro.reshape(n_win, steps_per_kf, 3), dtype=f64),
+        torch.full((n_win, steps_per_kf), imu_dt, dtype=f64),
+        torch.zeros(3, dtype=f64), torch.zeros(3, dtype=f64),
+        torch.eye(6, dtype=f64) * 1e-6, torch.eye(6, dtype=f64) * 1e-8,
+    )
+
+    Tbc, Kin, _ = make_rig(2, seed + 1)
+    cam = 0
+    # landmarks sprinkled in front of the trajectory
+    anchor = rng.randint(0, n_kf, n_lm)
+    X = np.zeros((n_lm, 3))
+    for l in range(n_lm):
+        Twb = np.eye(4)
+        Twb[:3, :3] = Rs[kf_idx[anchor[l]]]
+        Twb[:3, 3] = ps[kf_idx[anchor[l]]]
+        Twc = Twb @ Tbc[cam]
+        Xc = np.array([rng.uniform(-4, 4), rng.uniform(-2.5, 2.5), rng.uniform(5, 20)])
+        X[l] = Twc[:3, :3] @ Xc + Twc[:3, 3]
+
+    obs, okf, olm, ocam = [], [], [], []
+    for k in range(n_kf):
+        Twb = np.eye(4)
+        Twb[:3, :3] = Rs[kf_idx[k]]
+        Twb[:3, 3] = ps[kf_idx[k]]
+        Tcw = np.linalg.inv(Twb @ Tbc[cam])
+        Xc = X @ Tcw[:3, :3].T + Tcw[:3, 3]
+        for l in np.nonzero(Xc[:, 2] > 1.0)[0]:
+            u = Kin[cam, 0] * Xc[l, 0] / Xc[l, 2] + Kin[cam, 2]
+            v_ = Kin[cam, 1] * Xc[l, 1] / Xc[l, 2] + Kin[cam, 3]
+            obs.append([u + rng.randn() * noise_px, v_ + rng.randn() * noise_px])
+            okf.append(k)
+            olm.append(int(l))
+            ocam.append(cam)
+    E = len(obs)
+
+    data = dict(
+        pre={k: val.numpy() for k, val in pre._asdict().items()},
+        imu_pairs=np.stack([np.arange(n_win), np.arange(1, n_kf)], 1).astype(np.int32),
+        imu_valid=np.ones(n_win, bool),
+        bg_lin=np.zeros((n_win, 3)),
+        ba_lin=np.zeros((n_win, 3)),
+        walk_info=np.eye(6) * 1e4,
+        gravity=G,
+        obs=np.array(obs),
+        obs_kf=np.asarray(okf, np.int32),
+        obs_lm=np.asarray(olm, np.int32),
+        obs_cam=np.asarray(ocam, np.int32),
+        w=np.ones(E),
+        obs_valid=np.ones(E, bool),
+        Tbc=Tbc,
+        K_intr=Kin,
+        pose_fixed=np.arange(n_kf) == 0,
+    )
+    gt = dict(R=Rs[kf_idx], p=ps[kf_idx], v=vs[kf_idx], bg=np.zeros((n_kf, 3)),
+              ba=np.zeros((n_kf, 3)), X=X)
+    Rp = gt["R"].copy()
+    for k in range(1, n_kf):
+        Rp[k] = Rp[k] @ _np_exp_se3(np.r_[np.zeros(3), rng.randn(3) * 0.01])[:3, :3]
+    free = (np.arange(n_kf) > 0)[:, None]
+    state0 = dict(
+        R=Rp,
+        p=gt["p"] + rng.randn(n_kf, 3) * 0.05 * free,
+        v=gt["v"] + rng.randn(n_kf, 3) * 0.05 * free,
+        bg=gt["bg"],
+        ba=gt["ba"],
+        X=gt["X"] + rng.randn(n_lm, 3) * 0.02,
+    )
+    return data, state0, gt
+
+
+def make_vi_ba_synthetic(n_kf=20, n_lm=500, steps_per_kf=40, imu_dt=0.005, noise_px=0.3,
+                         seed=0, dtype=torch.float64, device="cpu"):
+    """`make_vi_ba_synthetic_numpy` as (VIBAData, VIBAState perturbed,
+    VIBAState true) with tensors on `device` in `dtype`."""
+    from ..convert import vi_ba_from_numpy, vi_ba_state_from_numpy
+
+    data, state0, gt = make_vi_ba_synthetic_numpy(n_kf, n_lm, steps_per_kf, imu_dt,
+                                                  noise_px, seed)
+    return (vi_ba_from_numpy(data, device=device, dtype=dtype),
+            vi_ba_state_from_numpy(state0, device=device, dtype=dtype),
+            vi_ba_state_from_numpy(gt, device=device, dtype=dtype))
 
 
 def make_essential_graph_numpy(n_kf=500, n_loop=40, drift=0.002, seed=0,

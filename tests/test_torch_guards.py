@@ -39,7 +39,10 @@ def test_every_module_imports_without_jax():
             "amcslam_tpu_torch.frontend.orb", "amcslam_tpu_torch.frontend.orb_device",
             "amcslam_tpu_torch.frontend.features", "amcslam_tpu_torch.frontend.cameras",
             "amcslam_tpu_torch.examples", "amcslam_tpu_torch.examples.e2e_rendered",
-            "amcslam_tpu_torch.examples.multicam_amv"} <= set(mods)
+            "amcslam_tpu_torch.examples.multicam_amv", "amcslam_tpu_torch.ops.imu",
+            "amcslam_tpu_torch.factors.imu", "amcslam_tpu_torch.solver.vi_ba",
+            "amcslam_tpu_torch.solver.debug", "amcslam_tpu_torch.ransac.two_view",
+            "amcslam_tpu_torch.pipeline.viewer"} <= set(mods)
     code = (
         "import importlib, sys\n"
         f"for m in {mods!r}:\n"
@@ -59,6 +62,25 @@ def test_no_jax_import_in_port_sources():
                          re.M)
     for path in port_sources():
         assert not pattern.search(path.read_text()), path
+
+
+def test_viewer_imports_matplotlib_only_when_it_draws():
+    """Importing the whole port (the viewer and the entry points included)
+    leaves matplotlib out of sys.modules; a draw function brings it in."""
+    code = (
+        "import importlib, sys\n"
+        f"for m in {all_modules()!r}:\n"
+        "    importlib.import_module(m)\n"
+        "assert 'matplotlib' not in sys.modules\n"
+        "from amcslam_tpu_torch.pipeline import map_store, viewer\n"
+        "viewer.draw_map(map_store.Map())\n"
+        "assert 'matplotlib' in sys.modules\n"
+        "print('ok')\n"
+    )
+    proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True,
+                          text=True, timeout=120)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+    assert proc.stdout.startswith("ok")
 
 
 def test_precision_settings_keep_float32_matmuls_exact():
