@@ -7,11 +7,21 @@ on machines where JAX is not installed. Each module names its JAX
 counterpart by path and is tested against it (tests/test_torch_*.py).
 
 Layout (mirrors the reference):
-  ops/       SO(3)/SE(3) Lie groups, the WNOA GP, the GP-interpolation chain
-             (hand-written CUDA kernel in csrc/interp_chain.cu)
+  ops/       SO(3)/SE(3)/Sim(3) Lie groups, the WNOA GP, IMU preintegration,
+             the GP-interpolation chain (hand-written CUDA kernel in
+             csrc/interp_chain.cu)
   factors/   residual + analytic-Jacobian factors, batched over edges
-  solver/    robust kernels, the g2o-exact LM loop, the local GP-BA
-  utils/     shape buckets, the synthetic problem generator
+  solver/    robust kernels, the g2o-exact LM loop, the local/global GP-BA
+             (dense and PCG), the pose solver, Sim3 and VI optimizers
+  ransac/    MC-RANSAC, MLPnP, Sim3 RANSAC, two-view initialization
+  pipeline/  the System: tracking, local mapping, loop closing, the map
+  frontend/  ORB on the host (csrc/orb_fast.cpp) and on the device, cameras
+  parallel/  the landmark-sharded BA and edge-sharded essential graph over
+             torch.distributed ranks
+  examples/  the user entry points and the profiling scripts
+  utils/     shape buckets, the synthetic problem generator, I/O, timing
+  entry.py   the entry points of __graft_entry__.py (one LM iteration,
+             the multi-device dry run)
   convert.py carries a reference problem (numpy arrays) into torch tensors
 
 This module replaces `amcslam_tpu/ops/precision.py` and the reference's

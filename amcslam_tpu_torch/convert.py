@@ -12,6 +12,9 @@ packages; `to_numpy` goes the other way. The loop-closing carriers
 name -> array mapping. `vi_ba_from_numpy` / `vi_ba_from_reference` carry
 the visual-inertial BA's data (with its nested preintegration) and state,
 `two_view_from_reference` the two-view initializer's matches.
+`sharded_ba_from_reference` / `sharded_eg_from_reference` carry the
+reference's sharded problems (`amcslam_tpu/parallel/`) into the port's
+host-side `ShardedBA` / `ShardedEG`, which hold numpy arrays.
 
 Dtypes: integer fields become int64 (every index tensor is int64 from here
 on), boolean fields stay bool, floating fields take the requested dtype.
@@ -157,6 +160,23 @@ def vi_ba_from_reference(data, state, device="cpu", dtype=torch.float64):
 def two_view_from_reference(data, device="cpu", dtype=torch.float64) -> TwoViewData:
     """TwoViewData from the reference's NamedTuple or a mapping."""
     return _named(TwoViewData, _fields(data), device, dtype)
+
+
+def sharded_ba_from_reference(sb):
+    """The port's ShardedBA (numpy arrays, for `parallel.sharded_ba`) from
+    the reference's ShardedBA NamedTuple."""
+    from .parallel.sharded_ba import ShardedBA
+
+    return ShardedBA(_arrays(sb.data), _arrays(sb.state0), np.asarray(sb.lm_perm),
+                     int(sb.n_shards), int(sb.lm_per_shard))
+
+
+def sharded_eg_from_reference(se):
+    """The port's ShardedEG (numpy arrays, for `parallel.sharded_eg`) from
+    the reference's ShardedEG NamedTuple."""
+    from .parallel.sharded_eg import ShardedEG
+
+    return ShardedEG(_arrays(se.data), int(se.n_shards), int(se.e_per_shard))
 
 
 def _copy(a):

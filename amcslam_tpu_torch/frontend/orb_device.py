@@ -189,39 +189,49 @@ def _gaussian_blur7(img, sigma=2.0):
     return torch.clamp(torch.round(out), 0, 255)
 
 
-def _extract_level(img, brief, patch, ini_th, min_th, budget):
-    """One pyramid level of B images -> (xy (B,K,2) f32 level px, score,
-    angle, desc (B,K,32) uint8, valid), K = budget."""
-    B, H, W = img.shape
-    dev = img.device
-    ok_min, ok_ini, score = _fast_masks_pair(img, ini_th, min_th)
+def _candidates(ok_min, ok_ini, score):
+    """NMS and the cell logic of one level: (s, prio) (B,H,W), the scores of
+    the surviving corners and their selection priority (per-cell winners
+    lifted by _CELL_BONUS)."""
+    H, W = score.shape[1:]
     nms = _nms3(torch.where(ok_min, score, 0))
     cand_min = ok_min & nms
     cand_ini = ok_ini & cand_min
     cand = _cell_retry(cand_min, cand_ini, H, W)
     s = torch.where(cand, score, 0)
-    prio = s + torch.where(_cell_best_mask(s, H, W), _CELL_BONUS, 0)
-    # top-k by priority, ties to the lower flat index (jax.lax.top_k's order)
+    return s, s + torch.where(_cell_best_mask(s, H, W), _CELL_BONUS, 0)
+
+
+def _top_k(s, prio, budget):
+    """The `budget` best pixels by priority, ties to the lower flat index
+    (jax.lax.top_k's order): (ys, xs, valid, score) (B,K)."""
+    B, H, W = prio.shape
     n = H * W
-    key = prio.reshape(B, n).long() * n + (n - 1 - torch.arange(n, device=dev))
+    key = prio.reshape(B, n).long() * n + (n - 1 - torch.arange(n, device=prio.device))
     flat = n - 1 - torch.topk(key, budget, dim=1).values % n
     vals = prio.reshape(B, n).gather(1, flat)
-    ys, xs = flat // W, flat % W
-    valid = vals > 0
-    sc = s.reshape(B, n).gather(1, flat)
+    return flat // W, flat % W, vals > 0, s.reshape(B, n).gather(1, flat)
 
-    # intensity-centroid orientation over the circular patch (exact integer
-    # sums in float32: |m| <= 255 * 15 * 749 < 2^24)
-    bidx = torch.arange(B, device=dev)[:, None, None]
+
+def _orientation(img, ys, xs, patch):
+    """Intensity-centroid angle over the circular patch (exact integer sums
+    in float32: |m| <= 255 * 15 * 749 < 2^24)."""
+    B, H, W = img.shape
+    bidx = torch.arange(B, device=img.device)[:, None, None]
     py = torch.clamp(ys[:, :, None] + patch[:, 0], 0, H - 1)
     px = torch.clamp(xs[:, :, None] + patch[:, 1], 0, W - 1)
     vals_p = img[bidx, py, px].float()
     m10 = (vals_p * patch[:, 1].float()).sum(-1)
     m01 = (vals_p * patch[:, 0].float()).sum(-1)
-    ang = torch.atan2(m01, m10)
+    return torch.atan2(m01, m10)
 
-    # rotated BRIEF on the blurred level, sampled at clipped image indices
-    blur = _gaussian_blur7(img)
+
+def _brief(blur, ys, xs, ang, brief):
+    """Rotated BRIEF on the blurred level, sampled at clipped image indices:
+    (B,K,32) uint8."""
+    B, H, W = blur.shape
+    K = ys.shape[1]
+    bidx = torch.arange(B, device=blur.device)[:, None, None]
     ca, sa = torch.cos(ang)[:, :, None], torch.sin(ang)[:, :, None]
 
     def samp(bx, by):
@@ -232,8 +242,20 @@ def _extract_level(img, brief, patch, ini_th, min_th, budget):
         return blur[bidx, yy, xx]
 
     bits = samp(brief[:, 0], brief[:, 1]) < samp(brief[:, 2], brief[:, 3])  # (B,K,256)
-    weights = torch.tensor([128, 64, 32, 16, 8, 4, 2, 1], dtype=torch.int32, device=dev)
-    desc = (bits.reshape(B, budget, 32, 8).to(torch.int32) * weights).sum(-1).to(torch.uint8)
+    weights = torch.tensor([128, 64, 32, 16, 8, 4, 2, 1], dtype=torch.int32, device=blur.device)
+    return (bits.reshape(B, K, 32, 8).to(torch.int32) * weights).sum(-1).to(torch.uint8)
+
+
+def _extract_level(img, brief, patch, ini_th, min_th, budget):
+    """One pyramid level of B images -> (xy (B,K,2) f32 level px, score,
+    angle, desc (B,K,32) uint8, valid), K = budget: FAST, NMS and the cell
+    logic, the top-K, orientation, blur and BRIEF (the stages that
+    examples/profile_orb_device.py times one by one)."""
+    ok_min, ok_ini, score = _fast_masks_pair(img, ini_th, min_th)
+    s, prio = _candidates(ok_min, ok_ini, score)
+    ys, xs, valid, sc = _top_k(s, prio, budget)
+    ang = _orientation(img, ys, xs, patch)
+    desc = _brief(_gaussian_blur7(img), ys, xs, ang, brief)
     xy = torch.stack([xs, ys], dim=-1).float()
     return xy, sc, ang, desc, valid
 

@@ -339,6 +339,18 @@ def _gram(A, B):
     return A.transpose(1, 2) @ B
 
 
+def active_columns(data: LocalBAData, ext_active=None) -> torch.Tensor:
+    """(P,) 1.0 on the columns of the reduced pose system that move: the 12
+    of each free pose and the first 6 of each free extrinsic's 12-wide
+    phantom group; 0.0 elsewhere (they get identity rows when damped)."""
+    dtype, dev = data.mg_obs.dtype, data.mg_obs.device
+    pose_act = (~data.pose_fixed).to(dtype)
+    ext_act = (~data.ext_fixed if ext_active is None else ext_active.to(torch.bool)).to(dtype)
+    phantom = torch.cat([torch.ones(6, dtype=dtype, device=dev),
+                         torch.zeros(6, dtype=dtype, device=dev)]).repeat(data.n_ext)
+    return torch.cat([pose_act.repeat_interleave(12), ext_act.repeat_interleave(12) * phantom])
+
+
 def make_ba_problem(
     data: LocalBAData,
     lvl_m,
@@ -362,10 +374,7 @@ def make_ba_problem(
 
     pose_act = (~data.pose_fixed).to(dtype)
     ext_act = (~data.ext_fixed if ext_active is None else ext_active.to(torch.bool)).to(dtype)
-    phantom = torch.cat([torch.ones(6, dtype=dtype, device=dev),
-                         torch.zeros(6, dtype=dtype, device=dev)]).repeat(Cx)
-    act_vec = torch.cat([pose_act.repeat_interleave(12),
-                         ext_act.repeat_interleave(12) * phantom])  # (P,)
+    act_vec = active_columns(data, ext_active)  # (P,)
     # mg_cam == Cx selects the stereo row (never optimizable)
     ext_act1 = torch.cat([ext_act, zero[None]])
 

@@ -297,13 +297,18 @@ def make_essential_graph_problem(data: EssentialGraphData) -> LMProblem:
     return LMProblem(_eg_chi2(data), linearize, max_abs_diag, solve, _eg_retract(data))
 
 
-def _pcg(Ji, Jj, i_, j_, D, b, act, lam, pcg_iters: int, pcg_tol: float):
+def _pcg(Ji, Jj, i_, j_, D, b, act, lam, pcg_iters: int, pcg_tol: float, reduce=None):
     """Block-Jacobi preconditioned CG on (J^T J + diag) x = b, matrix-free.
 
     The reference's `while_loop` exit, evaluated on the card and read on
     the host once per step: stop after `pcg_iters` steps, or when
     rr . rr <= pcg_tol * max(b . b, 1e-30). Returns (x (N,7), steps,
-    rr . rr / max(b . b, 1e-30))."""
+    rr . rr / max(b . b, 1e-30)).
+
+    `reduce`, if given, maps the (N,7) segment sums of each product J^T J p
+    before the damping is added: the edge-sharded problem passes an
+    all-reduce over its ranks (parallel/sharded_eg.py), whose edges are
+    then this call's share of the graph's."""
     dtype = b.dtype
     N = b.shape[0]
     tiny = torch.tensor(1e-30, dtype=dtype, device=b.device)
@@ -318,6 +323,8 @@ def _pcg(Ji, Jj, i_, j_, D, b, act, lam, pcg_iters: int, pcg_tol: float):
         u = torch.einsum("erc,ec->er", Ji, x[i_]) + torch.einsum("erc,ec->er", Jj, x[j_])
         out = (seg(i_, torch.einsum("erc,er->ec", Ji, u))
                + seg(j_, torch.einsum("erc,er->ec", Jj, u)))
+        if reduce is not None:
+            out = reduce(out)
         return out + damp[:, None] * x
 
     def dot(a, c):

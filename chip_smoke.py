@@ -76,7 +76,7 @@ result line):
                size; and the same at the global BA's live lba.Um (11a). It
                runs after 9 and 11 because those sizes are known only there.
  11. loop   — loop closing. 11a: the System with loop closing on over
-               the first 16 frames of make_sequence(64 frames, 6 cameras,
+               the first 12 frames of make_sequence(64 frames, 6 cameras,
                3000 landmarks, 1 frame/s, 0.3 px, seed 0), float32,
                sequential, 9a's tracking config: every frame OK, the closer
                ran detection on every keyframe past its 12-keyframe guard and
@@ -166,8 +166,37 @@ result line):
                takes F, at least one is ok and the ok ones recover R within
                0.05; every planar scene's best homography holds R within
                0.05; ms per reconstruct.
+ 14. multidevice — the sharded solvers (parallel/): one `run_ranks` spawn
+               of 4 ranks on cuda:0, joined by gloo (NCCL takes one card
+               per rank), runs 14a-14c; every rank's failure fails the run.
+               14a: `entry.dryrun_rank(4)` (the dry run's landmark-sharded
+               BA and edge-sharded essential graph, float32, 3 LM
+               iterations): both chi2 finite and within max(1e-5, 10x the
+               single-device run's own move under a 4-ulp float32
+               perturbation of its start) of the single-device run. 14b: the landmark-sharded local BA at
+               the headline window (tests/test_sharded_ba.py:98-123: 50 KF,
+               5000 landmarks, 6 cameras, seed 0), float64, 10 LM
+               iterations from lambda 1: the single-device run's iteration
+               count, chi2 rtol 1e-10, T and v atol 1e-8, X through
+               lm_perm atol 1e-7, the same replicated state on every rank;
+               chain launches per rank, ms per LM iteration sharded beside
+               single-device (4 ranks sharing one card: not a scaling
+               figure); then the same problem on a world of one rank (this
+               process) under NCCL equals the deterministic single-device
+               run to rtol 1e-12. 14c: the edge-sharded essential graph
+               (PCG from lambda 1e-16): config 5a in float64 for 5 LM
+               iterations against the single-device PCG problem (chi2 rtol
+               1e-9, t atol 1e-7), config 5e in float32 for 3 (ATE <= 0.5 %
+               of the path); ms per LM iteration, all-reduces per CG step;
+               the ranks' start-up and each job's seconds.
+ 15. orb profile — examples/profile_orb_device.py on 12a's tick (7
+               images, 1,200 features): device ms (CUDA events), kernel
+               launches and share of the tick of each stage (resize, FAST,
+               NMS and the cells, top-K, orientation, blur, BRIEF) and of
+               the full batched extractor.
 
-Phase 13 runs after phase 12 and before phase 10. The kernels line keeps
+Phases 13, 14 and 15 run after phase 12 and before phase 10; the kernels
+line's launches include phase 14's in every rank. The kernels line keeps
 `ms` and `plain_ms` as phase 5 measures them (the
 entry and the plain version at the headline's 1024 combos, host included);
 phase 10's device time per launch at that size is `device_ms`.
@@ -180,7 +209,8 @@ sequence's 60 frames (all before), 9b 8 (15, then 10) and 9c 12 (30, then
 (56 before, so that the oracle path came back to its start at frame 51; it
 formed no loop candidate there, and 12c now drives a live revisit and
 closure from rendered images: 16 frames keep 5 detections past the
-closer's guard and its full-map global BA), 12b 16 of its scenario's 40
+closer's guard and its full-map global BA), and since phase 14 was added
+12 (one detection and the global BA); 12b 16 of its scenario's 40
 frames and the fisheye run 10 of its 30. Every line carries `t_s`, the
 seconds since the start.
 
@@ -200,6 +230,7 @@ import statistics
 import subprocess
 import sys
 import threading
+import tempfile
 import time
 from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
@@ -208,10 +239,14 @@ from unittest import mock
 import numpy as np
 import torch
 
-from amcslam_tpu_torch import _build, convert, native
+from amcslam_tpu_torch import _build, convert, entry, native
 from amcslam_tpu_torch.examples import e2e_rendered as e2e
+from amcslam_tpu_torch.examples import profile_orb_device
+from amcslam_tpu_torch.examples.profile_pcg import HBM_BYTES_PER_S, PEAK_FLOPS, cg_step_bound
 from amcslam_tpu_torch.frontend import features, orb, orb_device
 from amcslam_tpu_torch.ops import interp_chain, lie
+from amcslam_tpu_torch.parallel import group as pgroup
+from amcslam_tpu_torch.parallel import sharded_ba, sharded_eg
 from amcslam_tpu_torch.pipeline import extraction, local_mapping, map_store, tracking
 from amcslam_tpu_torch.pipeline.keyframe_database import KeyFrameDatabase
 from amcslam_tpu_torch.pipeline.loop_closing import LoopClosing
@@ -1186,9 +1221,9 @@ def phase_system(device, smi):
 
 # make_sequence drives the body at the twist [1.5, 0.1, 0, 0, 0, 0.12] per
 # second: a circle of ~12.5 m radius, one lap in 52.4 s (~1,385 keypoints per
-# camera per frame at 1 frame/s); the first 16 frames are under a third of a lap.
+# camera per frame at 1 frame/s); the first 12 frames are under a quarter of a lap.
 LOOP_SEQ = dict(n_frames=64, n_cams=6, n_lm=3000, fps=1.0, noise_px=0.3, seed=0)
-LOOP_FRAMES = 16  # of the 64: 5 detections past the closer's guard, a full-map global BA
+LOOP_FRAMES = 12  # of the 64: a detection past the closer's guard, a full-map global BA
 LOOP_ATE_PCT = 0.5
 # a drifted revisit built by hand (the reference's own loop tests do so:
 # with oracle keypoints a live revisit drifts too little to need a closure),
@@ -1352,16 +1387,15 @@ def loop_map_case():
 
 
 def ulp_perturbed(tensors, seed=0):
-    """Each float tensor times (1 +- PAD_PERTURB_ULPS float64 eps), random
-    signs from `seed`; other tensors as they are."""
+    """Each float tensor times (1 +- PAD_PERTURB_ULPS eps of its dtype),
+    random signs from `seed`; other tensors as they are."""
     gen = torch.Generator(device=tensors[0].device).manual_seed(seed)
-    eps = torch.finfo(torch.float64).eps
 
     def perturb(a):
         if not a.is_floating_point():
             return a
         sign = torch.randint(0, 2, a.shape, generator=gen, device=a.device).to(a.dtype) * 2 - 1
-        return a * (1 + PAD_PERTURB_ULPS * eps * sign)
+        return a * (1 + PAD_PERTURB_ULPS * torch.finfo(a.dtype).eps * sign)
 
     out = [perturb(a) for a in tensors]
     return type(tensors)(*out) if hasattr(tensors, "_fields") else tuple(out)
@@ -2102,34 +2136,6 @@ def pcg_dense(device) -> dict:
     return rec
 
 
-def cg_step_bound(data, lin) -> dict:
-    """The least time one CG step of make_ba_problem_pcg could take on this
-    problem: the Schur product S p and the preconditioner read every edge
-    Jacobian, weight and index once (the three landmark edge families, the
-    GP chain's J1, J2 and Omega), the landmark blocks (Hll^-1) and the
-    per-pose 12x12 preconditioner blocks once, and read and write the CG
-    vectors (x, r, p, z, S p: five (K,12) reads and writes), over HBM
-    bandwidth; its FLOP (two products with each pose Jacobian, two with
-    each landmark Jacobian, four 12x12 products per GP edge, the 3x3 and
-    12x12 block products) over the dtype's peak; the larger of the two."""
-    edges, Hll, _, bp12, bext, D12, Dext, _, _ = lin
-    flat = [t for fam in edges for t in fam]
-    index = [data.mg_pair, data.mg_cam, data.mg_lm, data.sg_pair, data.sg_lm, data.st_pose,
-             data.st_lm, data.gp_pairs]
-    nbytes = (sum(t.numel() * t.element_size() for t in flat + index + [Hll, D12, Dext])
-              + 10 * (bp12.numel() + bext.numel()) * bp12.element_size())
-    (J1m, J2m, Jem, Jlm, _), (J1g, J2g, Jlg, _), (J3, Jls, _), (J1p, J2p, Om) = edges
-    pose_jac = sum(t.numel() for t in (J1m, J2m, Jem, J1g, J2g, J3))
-    flop = (4 * pose_jac + 4 * sum(t.numel() for t in (Jlm, Jlg, Jls))
-            + 4 * 2 * J1p.numel() + 2 * 2 * Om.numel() + 2 * 9 * Hll.shape[0]
-            + 2 * D12.numel())
-    ms_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    ms_flop = flop / PEAK_FLOPS[bp12.dtype] * 1e3
-    return {"bound_ms": max(ms_bytes, ms_flop),
-            "bound_by": "bytes" if ms_bytes >= ms_flop else "operations",
-            "bytes": nbytes, "flop": flop}
-
-
 def pcg_5d(device) -> dict:
     """13c: config 5d at full size (2,000 KF, 10k landmarks, ~50k stereo
     edges), float32, 40 CG steps / 1e-3, lambda 1e-3: 3 warm-up and 5 timed
@@ -2388,11 +2394,232 @@ def phase_solvers(device, smi) -> int:
 
 
 # ---------------------------------------------------------------------------
+# phase 14: the multi-device solvers; phase 15: the device ORB's stages
+# ---------------------------------------------------------------------------
+
+RANKS = 4
+RANKS_DEADLINE_S = 400.0
+DRYRUN_RTOL = 1e-5             # float32: the floor of 14a's bound (see dryrun_witness)
+DRYRUN_WITNESS_FACTOR = 10.0   # as PAD_TOL_FACTOR: the bound over the run's own float32 noise
+SHARDED_BA_ITERS = 10
+SHARDED_BA_TOL = {"chi2_rtol": 1e-10, "T_v_atol": 1e-8, "X_atol": 1e-7}  # test_sharded_ba.py:98-123
+NCCL_RTOL = 1e-12
+ONE_RANK_BACKEND = "nccl"      # a CPU rehearsal sets "gloo"
+# LM iterations of 14c from lambda_0 = 1e-16 (optimize_essential_graph runs
+# 20): 5a as tests/test_sharded_ba.py:126-163; each CG step of a sharded
+# run costs ~9.6 ms on 4 ranks sharing the card (PERF.md), so 5e runs 3
+EG_5A_ITERS = 5
+EG_5E_ITERS = 3
+EG_5A_TOL = {"chi2_rtol": 1e-9, "t_atol": 1e-7}
+NOT_SCALING = "4 ranks sharing one card, gloo through the host, not a scaling figure"
+
+
+def ranks_identical(results, key, fields) -> bool:
+    """Whether every rank returned the same bits in `fields` of
+    results[r][key] (the replicated state)."""
+    first = results[0][key]
+    return all(np.array_equal(getattr(r[key], f), getattr(first, f))
+               for r in results[1:] for f in fields)
+
+
+def dryrun_witness(device) -> list:
+    """14a's float32 noise: the single-device dry run again, its two start
+    states moved by PAD_PERTURB_ULPS float32 ulps (random signs, seed 0).
+    After 3 LM iterations in float32 the dry run's chi2 moves by ~1e-5 of
+    itself when its rounding changes (the single-device run alone gave
+    14.854154-14.854318 in four calls on the H100, through the atomics of
+    `index_add_`), and sharding changes the order of its sums. So 14a is
+    held to max(DRYRUN_RTOL, DRYRUN_WITNESS_FACTOR x this run's relative
+    move), as check_padded holds the padded combos."""
+    make = entry._dryrun_problems
+
+    def moved(n_devices):
+        (data, state0), (eg_data, eg_state0) = make(n_devices)
+        return (data, ulp_perturbed(state0)), (eg_data, ulp_perturbed(eg_state0))
+
+    with mock.patch.object(entry, "_dryrun_problems", moved):
+        return list(entry.dryrun_single_device(RANKS, device))
+
+
+def timed_lm(problem, state, iters, lambda_init):
+    """lm_optimize with its host seconds behind syncs."""
+    sync()
+    t0 = time.perf_counter()
+    out, stats = tlm.lm_optimize(problem, state, iters, lambda_init=lambda_init)
+    sync()
+    return out, stats, time.perf_counter() - t0
+
+
+def nccl_one_rank(np_data, np_state, device, want_chi2) -> dict:
+    """14b's NCCL check: the headline problem sharded over a world of one
+    rank (this process) under NCCL equals make_ba_problem's run."""
+    import torch.distributed as dist
+
+    with tempfile.TemporaryDirectory() as tmp:
+        dist.init_process_group(ONE_RANK_BACKEND, init_method=f"file://{tmp}/store", rank=0,
+                                world_size=1)
+        try:
+            sb1 = sharded_ba.shard_ba_data(np_data, np_state, 1)
+            p1 = sharded_ba.make_sharded_ba_problem(sb1, 0, dist.group.WORLD, device)
+            _, st, _ = timed_lm(p1, sb1.local_state(0, device), SHARDED_BA_ITERS, 1.0)
+        finally:
+            dist.destroy_process_group()
+    rel = abs(float(st.chi2) - want_chi2) / abs(want_chi2)
+    if not rel <= NCCL_RTOL:
+        raise AssertionError(f"14b NCCL: one-rank chi2 {float(st.chi2)} vs {want_chi2}: {rel:.3e}")
+    return {"backend": ONE_RANK_BACKEND, "world_size": 1, "chi2": float(st.chi2), "iterations":
+            st.iterations, "chi2_rel_vs_single": rel, "rtol": NCCL_RTOL}
+
+
+def phase_multidevice(device, smi) -> int:
+    """Phase 14: one `run_ranks` spawn of 4 gloo ranks on the card runs
+    14a (the dry run), 14b (the landmark-sharded local BA at the headline
+    window, float64, 10 LM iterations) and 14c (the edge-sharded essential
+    graph: config 5a float64, config 5e float32); the main process holds
+    each against its single-device run on the card, then repeats 14b on a
+    world of one rank under NCCL. Returns the chain's launches of the phase
+    (every rank's and the main process's)."""
+    t_phase = time.perf_counter()
+    np_data, np_state, _ = make_local_ba_problem_numpy(**HEADLINE)
+    sb = sharded_ba.shard_ba_data(np_data, np_state, RANKS)
+    eg5a, st5a, _ = make_essential_graph_numpy(**EG_5A)
+    eg5e, st5e, Ts5e = make_essential_graph_numpy(**EG_5E)
+    f32 = convert.essential_graph_from(eg5e, dtype=torch.float32)
+    jobs = [(entry.dryrun_rank, (RANKS,)),
+            (sharded_ba.run_lm, (sb, SHARDED_BA_ITERS, 1.0)),
+            (sharded_eg.run_lm, (sharded_eg.shard_eg_data(eg5a, RANKS), st5a, EG_5A_ITERS,
+                                 1e-16)),
+            (sharded_eg.run_lm, (sharded_eg.shard_eg_data(f32, RANKS),
+                                 {k: np.asarray(v, np.float32) for k, v in st5e.items()},
+                                 EG_5E_ITERS, 1e-16)),
+            (sharded_ba.chain_launches, ())]
+    # the single-device runs that are timed go before the spawn, alone on the card
+    data, state = convert.ba_from_numpy(np_data, np_state, device=device, dtype=torch.float64)
+    problem = ba.make_ba_problem(data, data.mg_valid, data.sg_valid, data.st_valid)
+    s1, st1, single_s = timed_lm(problem, state, SHARDED_BA_ITERS, 1.0)
+    d5a = convert.essential_graph_from(eg5a, device=device, dtype=torch.float64)
+    s5a = convert.sim3_field_from(st5a, device=device, dtype=torch.float64)
+    out5a, stats5a, single5a_s = timed_lm(sim3_opt.make_essential_graph_problem_pcg(d5a), s5a,
+                                          EG_5A_ITERS, 1e-16)
+    interp_chain.LAUNCHES = 0
+
+    def spawn():
+        t0, wall0 = time.perf_counter(), time.time()
+        res = pgroup.run_ranks(pgroup.sequence, RANKS, device=str(device), backend="gloo",
+                               args=(jobs,), deadline_s=RANKS_DEADLINE_S)
+        return res, time.perf_counter() - t0, wall0
+
+    # while the ranks run: the untimed single-device checks (the dry run's
+    # problems, the deterministic headline run and its NCCL one-rank twin)
+    with ThreadPoolExecutor(1) as pool:
+        pending = pool.submit(spawn)
+        want = entry.dryrun_single_device(RANKS, device)
+        witness = [abs(a - b) / abs(b) for a, b in zip(dryrun_witness(device), want)]
+        torch.use_deterministic_algorithms(True, warn_only=True)
+        try:
+            _, st_det, _ = timed_lm(problem, state, SHARDED_BA_ITERS, 1.0)
+            nccl = nccl_one_rank(np_data, np_state, device, float(st_det.chi2))
+        finally:
+            torch.use_deterministic_algorithms(False)
+        ranks, ranks_s, wall0 = pending.result()
+    dry, lba, e5a, e5e, rank_launches = (list(x) for x in zip(*(r["results"] for r in ranks)))
+    timing = {"ranks_s": ranks_s, "start_up_s": max(r["started"] for r in ranks) - wall0,
+              "jobs_s": dict(zip(("14a", "14b", "14c_5a", "14c_5e", "count"),
+                                 np.max([r["seconds"] for r in ranks], axis=0).tolist()))}
+
+    # 14a
+    rel = [abs(a - b) / abs(b) for a, b in zip(dry[0], want)]
+    tol = [max(DRYRUN_RTOL, DRYRUN_WITNESS_FACTOR * w) for w in witness]
+    rec_a = {"chi2": dry[0][0], "eg_chi2": dry[0][1], "single_device": list(want),
+             "rel": rel, "rtol": tol, "single_device_ulp_witness": witness,
+             "ranks_agree": all(d == dry[0] for d in dry)}
+    emit("multidevice_dryrun", **rec_a)
+    if not (all(np.isfinite(dry[0])) and all(r <= t for r, t in zip(rel, tol))
+            and rec_a["ranks_agree"]):
+        raise AssertionError(f"14a: {rec_a}")
+
+    # 14b
+    r0 = lba[0]
+    X = sharded_ba.unshard_X(sb, [r["state"].X for r in lba])
+    gaps = {"chi2_rel": abs(float(r0["chi2"]) - float(st1.chi2)) / abs(float(st1.chi2)),
+            "T_max_abs": float(np.abs(r0["state"].T - s1.T.cpu().numpy()).max()),
+            "v_max_abs": float(np.abs(r0["state"].v - s1.v.cpu().numpy()).max()),
+            "X_max_abs": float(np.abs(X - s1.X.cpu().numpy()).max())}
+    rec_b = {"config": HEADLINE, "dtype": "float64", "ranks": RANKS, "L_per_rank": sb.lm_per_shard,
+             "iterations": {"sharded": int(r0["iterations"]), "single": st1.iterations},
+             "chi2": {"sharded": float(r0["chi2"]), "single": float(st1.chi2),
+                      "initial": float(r0["initial_chi2"])},
+             "gaps": gaps, "tolerances": SHARDED_BA_TOL,
+             "ranks_agree": ranks_identical(lba, "state", ("T", "v", "Text")),
+             "chain_launches_per_rank": [int(r["chain_launches"]) for r in lba],
+             "ms_per_lm_iteration": {
+                 "sharded": 1e3 * r0["seconds"] / max(int(r0["iterations"]), 1),
+                 "single": 1e3 * single_s / max(st1.iterations, 1), "note": NOT_SCALING},
+             "nccl_one_rank": nccl}
+    emit("multidevice_ba", **rec_b)
+    tol = SHARDED_BA_TOL
+    if not (rec_b["iterations"]["sharded"] == st1.iterations and rec_b["ranks_agree"]
+            and gaps["chi2_rel"] <= tol["chi2_rtol"] and gaps["T_max_abs"] <= tol["T_v_atol"]
+            and gaps["v_max_abs"] <= tol["T_v_atol"] and gaps["X_max_abs"] <= tol["X_atol"]):
+        raise AssertionError(f"14b: {rec_b}")
+    if min(rec_b["chain_launches_per_rank"]) < st1.iterations:
+        raise AssertionError(f"14b: chain launches per rank {rec_b['chain_launches_per_rank']}")
+
+    # 14c
+    a0, e0 = e5a[0], e5e[0]
+    gap5a = {"chi2_rel": abs(float(a0["chi2"]) - float(stats5a.chi2)) / abs(float(stats5a.chi2)),
+             "t_max_abs": float(np.abs(a0["state"].t - out5a.t.cpu().numpy()).max())}
+    path_m = float(np.linalg.norm(np.diff(Ts5e[:, :3, 3], axis=0), axis=1).sum())
+    ate = eg_ate(sim3_opt.Sim3Field(*(torch.as_tensor(x) for x in e0["state"])), Ts5e)
+
+    def eg_rec(r, n_edges):
+        return {"iterations": int(r["iterations"]), "chi2": float(r["chi2"]),
+                "cg_steps": int(r["cg_steps"]),
+                "all_reduces_per_cg_step": r["cg_all_reduces"] / max(r["cg_steps"], 1),
+                "ms_per_lm_iteration": 1e3 * r["seconds"] / max(int(r["iterations"]), 1),
+                "edges_per_rank": n_edges}
+
+    rec_c = {"5a": {**eg_rec(a0, -(-int(eg5a["pairs"].shape[0]) // RANKS)), "dtype": "float64",
+                    "single": {"iterations": stats5a.iterations, "chi2": float(stats5a.chi2),
+                               "ms_per_lm_iteration":
+                                   1e3 * single5a_s / max(stats5a.iterations, 1)},
+                    "gaps": gap5a, "tolerances": EG_5A_TOL,
+                    "ranks_agree": ranks_identical(e5a, "state", ("s", "R", "t"))},
+             "5e": {**eg_rec(e0, -(-int(eg5e["pairs"].shape[0]) // RANKS)), "dtype": "float32",
+                    "path_m": path_m, "ate_after_m": ate, "ate_after_pct": 100 * ate / path_m,
+                    "ate_bound_pct": EG_ATE_PCT,
+                    "ranks_agree": ranks_identical(e5e, "state", ("s", "R", "t"))},
+             "note": NOT_SCALING}
+    emit("multidevice_eg", **rec_c)
+    if not (gap5a["chi2_rel"] <= EG_5A_TOL["chi2_rtol"]
+            and gap5a["t_max_abs"] <= EG_5A_TOL["t_atol"]
+            and rec_c["5a"]["ranks_agree"] and rec_c["5e"]["ranks_agree"]):
+        raise AssertionError(f"14c 5a: {rec_c['5a']}")
+    if not ate <= EG_ATE_PCT / 100 * path_m:
+        raise AssertionError(f"14c 5e: ATE {ate:.3f} m > {EG_ATE_PCT} % of {path_m:.0f} m")
+
+    launches = sum(rank_launches) + interp_chain.LAUNCHES
+    emit("multidevice_summary", seconds=time.perf_counter() - t_phase, ranks_timing=timing,
+         card=smi, ranks=RANKS, backend="gloo", chain_kernel_launches=launches,
+         chain_kernel_launches_by_rank=rank_launches,
+         chain_kernel_launches_main=interp_chain.LAUNCHES, note=NOT_SCALING)
+    return launches
+
+
+def phase_orb_profile(device, smi) -> dict:
+    """Phase 15: examples/profile_orb_device.py on 12a's tick (7 images,
+    1,200 features): device ms, launches and share of the tick per stage."""
+    t0 = time.perf_counter()
+    _, _, imgs = orb_frame()
+    out = profile_orb_device.profile(imgs, ORB_FEATURES, device)
+    emit("orb_profile", **out, card=smi, seconds=time.perf_counter() - t0)
+    return out
+
+
+# ---------------------------------------------------------------------------
 # phase 10: the chain at the sizes the System launches it
 # ---------------------------------------------------------------------------
 
-HBM_BYTES_PER_S = 3.35e12                                # H100 SXM, NVIDIA's data sheet
-PEAK_FLOPS = {torch.float32: 67e12, torch.float64: 34e12}  # outside the tensor cores
 # FLOP per combo, counted from csrc/interp_chain.cu: 40 3x3 products (45 FLOP
 # each), 12 matrix-vector products (15 each), 6 series matrices I + aW + bW^2
 # (36 each) and ~400 FLOP of scalings, sums and scalars; the log's and the two
@@ -2583,6 +2810,10 @@ def main() -> None:
     f_launches = phase_frontend(device, smi)
     # 13. the per-edge fallback, the PCG global BA, VI BA and two-view
     v_launches = phase_solvers(device, smi)
+    # 14. the multi-device solvers
+    m_launches = phase_multidevice(device, smi)
+    # 15. the device ORB's stage profile
+    phase_orb_profile(device, smi)
 
     # 10. the chain at the System's sizes
     _, d9, s9, sid9, it_sid9, it_t9 = probe.lba_combos
@@ -2609,7 +2840,8 @@ def main() -> None:
         "route": "cuda",
         "source": "amcslam_tpu_torch/csrc/interp_chain.cu",
         "replaces": "amcslam_tpu/ops/pallas_chain.py:296",
-        "launches": launches + t_launches + s_launches + l_launches + f_launches + v_launches,
+        "launches": (launches + t_launches + s_launches + l_launches + f_launches + v_launches
+                     + m_launches),
         "max_abs_err": max_abs_err,
         "ms": chain_ms["kernel"],
         "plain_ms": chain_ms["plain"],

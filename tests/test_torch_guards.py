@@ -42,7 +42,11 @@ def test_every_module_imports_without_jax():
             "amcslam_tpu_torch.examples.multicam_amv", "amcslam_tpu_torch.ops.imu",
             "amcslam_tpu_torch.factors.imu", "amcslam_tpu_torch.solver.vi_ba",
             "amcslam_tpu_torch.solver.debug", "amcslam_tpu_torch.ransac.two_view",
-            "amcslam_tpu_torch.pipeline.viewer"} <= set(mods)
+            "amcslam_tpu_torch.pipeline.viewer", "amcslam_tpu_torch.parallel",
+            "amcslam_tpu_torch.parallel.group", "amcslam_tpu_torch.parallel.sharded_ba",
+            "amcslam_tpu_torch.parallel.sharded_eg", "amcslam_tpu_torch.entry",
+            "amcslam_tpu_torch.examples.profile_orb_device",
+            "amcslam_tpu_torch.examples.profile_pcg"} <= set(mods)
     code = (
         "import importlib, sys\n"
         f"for m in {mods!r}:\n"
