@@ -15,7 +15,14 @@ For each it reports:
     FLOP at the dtype's peak, the larger (`cg_step_bound`,
     `eg_cg_step_bound`).
 
-    python -m amcslam_tpu_torch.examples.profile_pcg [--device cuda|cpu]
+With `--warm` it runs only the warm-start study of the reference
+(`profile_warm_start`, examples/profile_pcg.py:180-241): 12 chained LM
+iterations of config 5d at cap 40 and tolerance 1e-3, each CG run started
+from x0 = 0 (cold) or from the previous iteration's (dxp, dxe) (warm);
+ms per LM iteration, the chi2 chain and the CG steps of each, and the
+final chi2's relative difference.
+
+    python -m amcslam_tpu_torch.examples.profile_pcg [--device cuda|cpu] [--warm]
 
 Prints one JSON line. The bounds use the H100 SXM's data-sheet rates.
 """
@@ -44,6 +51,9 @@ CAP_5C = 100
 LAM_5C = 1e-8
 LAM_5D = 1e-3
 SPLIT_CAPS = (20, 80)
+WARM_CHAIN = 12           # the reference's profile_warm_start(n_chain=12, cap=40, tol=1e-3)
+WARM_CAP = 40
+WARM_TOL = 1e-3
 
 
 def _bound(nbytes: int, flop: int, dtype) -> dict:
@@ -187,14 +197,68 @@ def profile_global_ba(device, config=CONFIG_5D, tols=TOLS, caps=CAPS_5D,
             "cg_step_bound": cg_step_bound(data, lin)}
 
 
+def chained(p, state0, lam, n_chain, x0=None) -> tuple[list, list]:
+    """n_chain LM iterations, each from the last one's retracted state and
+    accepted whatever its chi2 (the reference's chained protocol): the chi2
+    after each and the CG steps of each. With `x0` (the first start, e.g.
+    zeros) each CG run starts from the previous iteration's (dxp, dxe) (warm);
+    without it from x0 = None, whose residual is b itself (cold)."""
+    s, chis, steps = state0, [], []
+    for _ in range(n_chain):
+        dx, _, _ = p.solve(p.linearize(s), lam, x0)
+        s = p.retract(s, dx)
+        chis.append(p.chi2(s))
+        steps.append(dx.cg_steps)
+        if x0 is not None:
+            x0 = (dx.dxp, dx.dxe)
+    return [float(c) for c in chis], steps
+
+
+def profile_warm_start(device, config=CONFIG_5D, n_chain=WARM_CHAIN, cap=WARM_CAP, tol=WARM_TOL,
+                       dtype=torch.float32, data=None, state0=None) -> dict:
+    """The reference's warm-start study (examples/profile_pcg.py:180-241):
+    does starting CG from the previous LM iteration's step help the late
+    chained iterations where the block-Jacobi CG stalls? The cold and the
+    warm chain each run once to warm up and once timed (host clock behind a
+    sync); the warm one pays one more Schur product per solve (its initial
+    residual b - S x0). `data`, `state0` take an already-built problem of
+    `config` (chip_smoke's 13c)."""
+    device = torch.device(device)
+    if data is None:
+        data, state0, _ = make_local_ba_problem(**config, dtype=dtype, device=device)
+        data = data._replace(gp_huber=torch.tensor(True, device=device))
+    p = ba.make_ba_problem_pcg(data, data.mg_valid, data.sg_valid, data.st_valid,
+                               pcg_iters=cap, pcg_tol=tol)
+    lam = torch.tensor(LAM_5D, dtype=state0.T.dtype, device=device)
+    zeros = (torch.zeros((data.n_poses, 12), dtype=lam.dtype, device=device),
+             torch.zeros((data.n_ext, 6), dtype=lam.dtype, device=device))
+    out = {"config": config, "n_chain": n_chain, "cap": cap, "tol": tol, "lambda": LAM_5D}
+    for name, x0 in (("cold", None), ("warm", zeros)):
+        chained(p, state0, lam, n_chain, x0)
+        _sync(device)
+        t0 = time.perf_counter()
+        chis, steps = chained(p, state0, lam, n_chain, x0)
+        _sync(device)
+        out[name] = {"ms_per_lm_iteration": (time.perf_counter() - t0) * 1e3 / n_chain,
+                     "chi2": chis, "cg_steps": steps}
+    c, w = out["cold"]["chi2"][-1], out["warm"]["chi2"][-1]
+    out["final_chi2_rel_diff"] = abs(w - c) / max(abs(c), 1e-12)
+    return out
+
+
 def main(argv=None) -> dict:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--device", default="cuda")
+    ap.add_argument("--warm", action="store_true",
+                    help="run only the warm-start study (12 chained LM iterations of 5d)")
     args = ap.parse_args(argv)
     dev = resolve_device(args.device)
     out = {"profile": "pcg", "device": torch.cuda.get_device_name(dev)
-           if dev.type == "cuda" else "cpu", "dtype": "float32",
-           "config_5c": profile_eg(dev), "config_5d": profile_global_ba(dev)}
+           if dev.type == "cuda" else "cpu", "dtype": "float32"}
+    if args.warm:
+        out["warm_start"] = profile_warm_start(dev)
+    else:
+        out.update(config_5c=profile_eg(dev), config_5d=profile_global_ba(dev))
     print(json.dumps(out), flush=True)
     return out
 

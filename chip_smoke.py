@@ -128,11 +128,16 @@ result line):
                frame; then :128-155 (seed 2, async camera 0 KB8) on its first
                10 frames: the same with ATE < 1 % and KB8 observations in the
                map; median render / extract / track ms, local-BA ms per
-               keyframe, peak memory. 12c: tests/test_loop_e2e.py:41-48
-               unchanged (70 frames, 5 fps, seed 0, a circle of period 12 s
-               and radius 4 m, 500 features, host ORB): at least one loop
-               closed, ATE < 1 % of the lap; the closer's stage ms and chain
-               launches. 12d: tests/test_amv_cli.py's 6-frame, 3-camera
+               keyframe, peak memory. 12c: the blackout run of
+               tests/test_e2e_scenarios.py:90-125 unchanged (90 frames, 5
+               fps, seed 0, a circle of period 12 s and radius 4 m, 500
+               features, host ORB, frames 66-71 black; its frames 0-65 are
+               tests/test_loop_e2e.py:41-48's, whose closure fires before
+               the blackout): at least one loop closed, ATE < 1 % of the
+               path, OK over frames 30-65, RECENTLY_LOST within 67-79, OK
+               from the recovery frame (the first OK from 72) to the end,
+               post-recovery ATE < 1 %; the closer's stage ms, the closure
+               frames, loop-edge records and chain launches. 12d: tests/test_amv_cli.py's 6-frame, 3-camera
                dataset written to build/amv_cli/ with the port's PNG writer,
                then `python -m amcslam_tpu_torch.examples.multicam_amv
                <yaml> --no-realtime --device cuda` in a subprocess: exit 0
@@ -156,7 +161,11 @@ result line):
                without CG steps) and ms per CG step; kernel launches per CG
                step (profiler), peak memory, the host build's seconds, and
                the chi2 after 2 iterations in float32 against float64 on the
-               card (relative 1e-4). 13d: config 4 (20 KF, 500 landmarks),
+               card (relative 1e-4); then the reference's warm-start study
+               (examples/profile_pcg.py --warm) on the same problem: 12
+               chained LM iterations cold (x0 = 0) and warm (x0 = the last
+               step), ms per LM iteration and both chi2 chains, each finite
+               and ending below the start. 13d: config 4 (20 KF, 500 landmarks),
                vi_ba for 10 iterations in float32 and float64 on the card,
                float64 card vs CPU (chi2 per iteration 1e-9, states 1e-8);
                ms per LM iteration, the final chi2 beside the ground
@@ -211,8 +220,22 @@ formed no loop candidate there, and 12c now drives a live revisit and
 closure from rendered images: 16 frames keep 5 detections past the
 closer's guard and its full-map global BA), and since phase 14 was added
 12 (one detection and the global BA); 12b 16 of its scenario's 40
-frames and the fisheye run 10 of its 30. Every line carries `t_s`, the
-seconds since the start.
+frames and the fisheye run 10 of its 30. 12c became the 90-frame blackout
+run (20 frames more than tests/test_loop_e2e.py's 70) with nothing cut
+elsewhere. Every line carries `t_s`, the seconds since the start.
+
+`python3 chip_smoke.py --scenarios` runs, after phase 10, the opt-in
+scenarios of tests/test_e2e_scenarios.py at full size, host ORB, with the
+checks of tests/test_torch_e2e_scenarios.py: the figure-eight (:38-60,
+160 frames: at least 2 closures, ATE < 0.5 %, at least 2 loop-edge
+records) and the threaded pin (:157-200, 40 frames sequential then
+threaded: the threaded median tracking ms from frame 10 on under 0.5x the
+sequential one, both ATEs under 2 %). Each prints its closures and their
+frames, loop-edge records, ATE, per-frame tracking median and p90, the
+closer's stage ms and chain launches, and every check by name; a check the
+reference's own CPU run fails (`KNOWN_REFERENCE_FAULTS`) is reported as
+that fault, and must fail on the card too. Any other failed check fails
+the run. The default run does not run them.
 
 The last three lines are the card's `nvidia-smi` name and power limit, the
 kernels' JSON record and the result line.
@@ -220,6 +243,7 @@ kernels' JSON record and the result line.
 
 from __future__ import annotations
 
+import argparse
 import contextlib
 import copy
 import itertools
@@ -242,7 +266,8 @@ import torch
 from amcslam_tpu_torch import _build, convert, entry, native
 from amcslam_tpu_torch.examples import e2e_rendered as e2e
 from amcslam_tpu_torch.examples import profile_orb_device
-from amcslam_tpu_torch.examples.profile_pcg import HBM_BYTES_PER_S, PEAK_FLOPS, cg_step_bound
+from amcslam_tpu_torch.examples.profile_pcg import (HBM_BYTES_PER_S, PEAK_FLOPS, cg_step_bound,
+                                                    profile_warm_start)
 from amcslam_tpu_torch.frontend import features, orb, orb_device
 from amcslam_tpu_torch.ops import interp_chain, lie
 from amcslam_tpu_torch.parallel import group as pgroup
@@ -1681,11 +1706,28 @@ E2E_AMV = dict(n_frames=16, fps=5.0, seed=1, n_async=5, n_features=400)
 E2E_AMV_ATE_PCT = 0.5
 E2E_FISHEYE = dict(n_frames=10, fps=5.0, seed=2, n_features=400, fisheye=True)
 E2E_FISHEYE_ATE_PCT = 1.0
-# tests/test_loop_e2e.py:41-48 unchanged: one 12 s lap of radius 4 m and the
-# revisit, host ORB, host renderer
-E2E_LOOP = dict(n_frames=70, fps=5.0, seed=0, circle=True, circle_period=12.0,
-                circle_radius=4.0, n_features=500)
+# tests/test_e2e_scenarios.py:90-125 unchanged: the blackout run, which is
+# tests/test_loop_e2e.py:41-48's lap and revisit (the same seed, world,
+# circle, fps and features: its closure fires at frame 56-59, before the
+# blackout) run 90 frames with frames 66-71 black; host ORB, host renderer
+E2E_LOOP = dict(n_frames=90, fps=5.0, seed=0, circle=True, circle_period=12.0,
+                circle_radius=4.0, n_features=500, blackout=(66, 6))
 E2E_LOOP_ATE_PCT = 1.0
+E2E_LOOP_OK_FROM = 30         # OK over frames 30-65 (the reference's states[30:66])
+E2E_LOST_WITHIN = (67, 80)    # RECENTLY_LOST somewhere in states[67:80]
+E2E_RECOVERY_FROM = 72        # the first OK frame from 72 on is the recovery frame
+# the opt-in scenarios (`--scenarios`) at the reference's full sizes:
+# tests/test_e2e_scenarios.py:38-60 (the figure-eight) and :157-200 (the
+# threaded pin, sequential then threaded)
+E2E_EIGHT = dict(n_frames=160, fps=5.0, seed=0, eight=True, circle_period=14.0,
+                 circle_radius=4.5, n_features=500)
+E2E_EIGHT_ATE_PCT = 0.5
+E2E_EIGHT_MIN_LOOPS = 2       # closures, and loop-edge records in the map
+E2E_THREADED = dict(n_frames=40, fps=5.0, seed=3, n_features=400)
+E2E_THREADED_ATE_PCT = 2.0
+E2E_THREADED_RATIO = 0.5      # threaded median tracking ms < 0.5x the sequential one
+E2E_THREADED_SKIP = 10        # the first frames, dropped from the latency statistic
+E2E_THREADED_MIN_OK = 0.4     # share of OK frames after the first, threaded
 CLI_DIR = _build.BUILD_DIR.parent / "amv_cli"
 
 
@@ -1805,31 +1847,46 @@ def frontend_orb(device) -> dict:
 
 def e2e_run(device, kw, timed=None, **extra) -> dict:
     """One `e2e_rendered.run` on `device`, the chain's counts set to 0 just
-    before it; returns its results, per-frame timings and counts."""
+    before it; returns its results, per-frame timings and counts, the
+    frames at which the loop closer's count rose, and the System and the
+    run's `collect` under "_system" and "_collect"."""
     GLOBAL_TIMER.samples.clear()
     torch.cuda.reset_peak_memory_stats()
     sync()
+    loops = []
+
+    class Counted(e2e.System):
+        def track_multicamera(self, frame):
+            state = super().track_multicamera(frame)
+            loops.append(self.loop_closer.loops_closed if self.loop_closer else 0)
+            return state
+
     interp_chain.LAUNCHES = 0
     collect = {}
     t0 = time.perf_counter()
-    with (timed or contextlib.nullcontext()):
+    with (timed or contextlib.nullcontext()), mock.patch.object(e2e, "System", Counted):
         ate, dist, n_loops = e2e.run(**kw, **extra, device=device, collect=collect)
     sync()
     t = collect["timing"]
     sys_ = collect["system"]
     m = sys_.atlas.active
     lba_ms = [1e3 * x for x in GLOBAL_TIMER.samples["lm.local_ba"]]
+    closure_frames = [k for k, n in enumerate(loops)
+                      for _ in range(n - (loops[k - 1] if k else 0))]
     return {"run": kw, **extra, "ate_m": ate, "path_m": float(dist),
             "ate_pct_of_path": 100 * ate / dist, "loops_closed": n_loops,
+            "closure_frames": closure_frames,
+            "loop_edge_records": sum(len(k.loop_edges) for k in m.keyframes.values()) // 2,
             "states": [s.name for s in collect["states"]],
             "keyframes": m.n_keyframes(), "map_points": m.n_map_points(),
             "render_ms_median": pct(t["render_ms"], 50),
             "extract_ms_median": pct(t["extract_ms_frames"], 50),
             "track_ms_median_incl_mapping": pct(t["track_ms"][1:], 50),
+            "track_ms_p90_incl_mapping": pct(t["track_ms"][1:], 90),
             "local_ba_ms_per_kf": {"median": pct(lba_ms, 50), "n": len(lba_ms)},
             "chain_kernel_launches": interp_chain.LAUNCHES,
             "peak_mem_bytes": torch.cuda.max_memory_allocated(),
-            "seconds": time.perf_counter() - t0, "_system": sys_}
+            "seconds": time.perf_counter() - t0, "_system": sys_, "_collect": collect}
 
 
 def map_observations(m, cams) -> int:
@@ -1847,6 +1904,7 @@ def frontend_rendered(device) -> int:
                             ("fisheye", E2E_FISHEYE, E2E_FISHEYE_ATE_PCT)):
         r = e2e_run(device, kw, backend="device", device_render=True)
         sys_ = r.pop("_system")
+        r.pop("_collect")
         m, C = sys_.atlas.active, sys_.rig.n_cams
         cams = range(C - 1) if name == "amv" else (0,)
         r["observations_by_cameras"] = {"cameras": list(cams),
@@ -1869,34 +1927,181 @@ def frontend_rendered(device) -> int:
     return launches
 
 
-def frontend_loop(device) -> int:
-    """12c: the live image-driven loop closure of tests/test_loop_e2e.py on
-    the card: at least one closure, ATE < 1 % of the lap. Returns the
-    chain's launches."""
-    stages = {name: (LoopClosing, attr) for name, attr in (
+def closer_timed() -> Timed:
+    """The loop closer's stages, timed (LoopClosing's methods)."""
+    return Timed({name: (LoopClosing, attr) for name, attr in (
         ("detect_common_regions", "detect_common_regions"), ("solve_sim3", "_solve_sim3"),
         ("correct_loop", "correct_loop"), ("essential_graph", "_essential_graph"),
-        ("search_and_fuse", "_search_and_fuse"), ("global_ba", "_run_global_ba"))}
-    timed = Timed(stages)
+        ("search_and_fuse", "_search_and_fuse"), ("global_ba", "_run_global_ba"))})
+
+
+def closer_record(timed: Timed) -> dict:
+    """ms of detection (per call and total), Sim3 solves, propagation (the
+    correction less its named parts), essential graph, fuse and global BA."""
+    parts = {k: timed.total(k) for k in ("essential_graph", "search_and_fuse", "global_ba")}
+    return {"detection": {"calls": len(timed.ms["detect_common_regions"]),
+                          "median": pct(timed.ms["detect_common_regions"], 50),
+                          "total": timed.total("detect_common_regions")},
+            "sim3": {"calls": len(timed.ms["solve_sim3"]), "total": timed.total("solve_sim3")},
+            "corrections": len(timed.ms["correct_loop"]),
+            "propagation": timed.total("correct_loop") - sum(parts.values()), **parts}
+
+
+def blackout_checks(r: dict) -> dict:
+    """tests/test_e2e_scenarios.py:106-125 on a blackout run: {check: ok},
+    and the recovery frame and the post-recovery ATE into `r`."""
+    states, n = r["states"], len(r["states"])
+    lo, hi = E2E_LOST_WITHIN
+    k_rec = next((i for i in range(E2E_RECOVERY_FROM, n) if states[i] == "OK"), None)
+    r["recovery_frame"] = k_rec
+    post = None
+    if k_rec is not None:
+        est_t, est_T = r["_collect"]["est"]
+        gt_t, gt_T = r["_collect"]["gt"]
+        t_rec = k_rec / r["run"]["fps"]
+        post, _ = ate_rmse(est_t[est_t >= t_rec], est_T[est_t >= t_rec],
+                           gt_t[gt_t >= t_rec], gt_T[gt_t >= t_rec])
+    r["ate_post_recovery_m"] = post
+    k0 = r["run"]["blackout"][0]
+    return {"ok_before_blackout": all(x == "OK" for x in states[E2E_LOOP_OK_FROM:k0]),
+            "recently_lost_in_blackout": "RECENTLY_LOST" in states[lo:hi],
+            "ok_at_end": states[-1] == "OK",
+            "ok_from_recovery": k_rec is not None and all(x == "OK" for x in states[k_rec:]),
+            "post_recovery_ate": post is not None
+            and post < E2E_LOOP_ATE_PCT / 100 * r["path_m"]}
+
+
+def frontend_loop(device) -> int:
+    """12c: the blackout run of tests/test_e2e_scenarios.py:90-125 on the
+    card, a live image-driven loop closure before the blackout: at least one
+    closure, ATE < 1 % of the path, and the reference's relocalization
+    checks (OK over 30-65, RECENTLY_LOST within 67-79, OK from the recovery
+    frame to the end, post-recovery ATE < 1 %). Returns the chain's
+    launches."""
+    timed = closer_timed()
     r = e2e_run(device, E2E_LOOP, timed=timed, backend="host")
     r.pop("_system")
-    parts = {k: timed.total(k) for k in ("essential_graph", "search_and_fuse", "global_ba")}
-    r["closer_ms"] = {"detection": {"calls": len(timed.ms["detect_common_regions"]),
-                                    "median": pct(timed.ms["detect_common_regions"], 50),
-                                    "total": timed.total("detect_common_regions")},
-                      "sim3": {"calls": len(timed.ms["solve_sim3"]),
-                               "total": timed.total("solve_sim3")},
-                      "propagation": timed.total("correct_loop") - sum(parts.values()),
-                      **parts}
+    r["closer_ms"] = closer_record(timed)
     r["closer_chain_launches"] = timed.launches
     r["ate_bound_pct"] = E2E_LOOP_ATE_PCT
+    checks = blackout_checks(r)
+    r.pop("_collect")
+    r["checks"] = checks
     emit("frontend_loop", **r)
     if r["loops_closed"] < 1:
         raise AssertionError("12c: no loop closure on the rendered revisit")
     if not r["ate_m"] < E2E_LOOP_ATE_PCT / 100 * r["path_m"]:
         raise AssertionError(f"12c: ATE {r['ate_m']:.4f} m >= {E2E_LOOP_ATE_PCT} % of "
                              f"{r['path_m']:.3f} m")
+    if not all(checks.values()):
+        raise AssertionError(f"12c: relocalization checks failed: {checks}, states "
+                             f"{r['states']}")
     return r["chain_kernel_launches"]
+
+
+# Checks of the opt-in scenarios that the JAX reference's own CPU run fails,
+# with what the reference gives. On the card such a check must come out
+# as on the port's CPU run (tests/test_torch_e2e_scenarios.py), and is
+# reported by name as the reference's fault instead of passing.
+KNOWN_REFERENCE_FAULTS = {
+    # the reference's own run of tests/test_e2e_scenarios.py:38-60 fires one
+    # closure (frame 71) and keeps one loop-edge record: on the second
+    # revisit the first lap's keyframes are covisible with the current ones
+    # and excluded from the database query (ROADMAP §3)
+    "closures_at_least_2": "the reference fires 1 closure on the figure-eight",
+    "loop_edge_records_at_least_2": "the reference keeps 1 loop-edge record on the "
+                                    "figure-eight",
+}
+
+
+def settle(name: str, r: dict, checks: dict) -> None:
+    """Record `checks` in `r`, the reference's known faults by name; raise
+    on a failed check, or on a known fault that comes out otherwise than on
+    the port's CPU run."""
+    r["checks"] = {k: ("ok" if v else "FAILED") for k, v in checks.items()}
+    bad = []
+    for k, v in checks.items():
+        if k in KNOWN_REFERENCE_FAULTS:
+            r["checks"][k] = {"result": "ok" if v else "failed",
+                              "known_reference_fault": KNOWN_REFERENCE_FAULTS[k]}
+            if v:
+                bad.append(f"{k} passed, where the reference and the port's CPU run fail it")
+        elif not v:
+            bad.append(k)
+    emit(f"scenario_{name}", **r)
+    if bad:
+        raise AssertionError(f"scenario {name}: {bad}")
+
+
+def scenario_record(r: dict, timed: Timed) -> dict:
+    r.pop("_system")
+    r["closer_ms"] = closer_record(timed)
+    r["closer_chain_launches"] = timed.launches
+    return r
+
+
+def scenario_eight(device) -> int:
+    """tests/test_e2e_scenarios.py:38-60 at full size (160 frames): at least
+    2 closures, a finite ATE under 0.5 % of the path, at least 2 loop-edge
+    records in the map. Returns the chain's launches."""
+    timed = closer_timed()
+    r = scenario_record(e2e_run(device, E2E_EIGHT, timed=timed, backend="host"), timed)
+    r.pop("_collect")
+    bound = E2E_EIGHT_ATE_PCT / 100 * r["path_m"]
+    settle("eight", r, {
+        "closures_at_least_2": r["loops_closed"] >= E2E_EIGHT_MIN_LOOPS,
+        "ate_finite": bool(np.isfinite(r["ate_m"])),
+        "ate_under_0.5_pct": bool(r["ate_m"] < bound),
+        "loop_edge_records_at_least_2": r["loop_edge_records"] >= E2E_EIGHT_MIN_LOOPS})
+    return r["chain_kernel_launches"]
+
+
+def scenario_threaded(device) -> int:
+    """tests/test_e2e_scenarios.py:157-200 (40 frames, seed 3), the
+    sequential then the threaded schedule: every frame after the first OK
+    (sequential); at least 40 % OK and OK in the last 5 (threaded); both
+    ATEs under 2 %; the threaded median tracking ms (frames 10 on) under
+    0.5x the sequential one. Returns the chain's launches."""
+    runs, launches = {}, 0
+    for threaded in (False, True):
+        timed = closer_timed()
+        r = scenario_record(e2e_run(device, E2E_THREADED, timed=timed, backend="host",
+                                    threaded=threaded), timed)
+        lat = r.pop("_collect")["timing"]["track_ms"][E2E_THREADED_SKIP:]
+        r["track_ms_median_from_frame_10"] = pct(lat, 50)
+        launches += r["chain_kernel_launches"]
+        runs["threaded" if threaded else "sequential"] = r
+    seq, thr = runs["sequential"], runs["threaded"]
+    n = len(thr["states"]) - 1
+    ratio = thr["track_ms_median_from_frame_10"] / seq["track_ms_median_from_frame_10"]
+    settle("threaded", {"sequential": seq, "threaded": thr, "median_ratio": ratio,
+                        "ratio_bound": E2E_THREADED_RATIO}, {
+        "sequential_all_ok": all(x == "OK" for x in seq["states"][1:]),
+        "threaded_ok_share": sum(x == "OK" for x in thr["states"][1:]) >= E2E_THREADED_MIN_OK * n,
+        "threaded_ok_in_last_5": "OK" in thr["states"][-5:],
+        "sequential_ate_under_2_pct": bool(seq["ate_m"] < E2E_THREADED_ATE_PCT / 100
+                                           * seq["path_m"]),
+        "threaded_ate_under_2_pct": bool(thr["ate_m"] < E2E_THREADED_ATE_PCT / 100
+                                         * thr["path_m"]),
+        "threaded_median_under_half": ratio < E2E_THREADED_RATIO})
+    return launches
+
+
+def phase_scenarios(device, smi) -> int:
+    """The opt-in scenarios (`--scenarios`), each run to its end; then
+    raises if any check failed. Returns the chain's launches."""
+    t_phase = time.perf_counter()
+    launches, failed = 0, []
+    for scenario in (scenario_eight, scenario_threaded):
+        try:
+            launches += scenario(device)
+        except AssertionError as exc:
+            failed.append(str(exc))
+    emit("scenarios_summary", seconds=time.perf_counter() - t_phase, card=smi,
+         chain_kernel_launches=launches, failed=failed)
+    if failed:
+        raise AssertionError(f"opt-in scenarios: {failed}")
+    return launches
 
 
 def write_amv_dataset(root, n_frames=6, fps=10.0):
@@ -2144,7 +2349,8 @@ def pcg_5d(device) -> dict:
     with no CG step, which is its fixed part (preconditioner, right-hand
     side, back-substitution); the rest over the CG steps is the ms per step.
     Then the chi2 of 2 chained iterations in float64 on the card against the
-    float32 run's (relative 1e-4)."""
+    float32 run's (relative 1e-4), and the warm-start study
+    (`profile_pcg.profile_warm_start`) on the float32 problem."""
     t0 = time.perf_counter()
     np_data, np_state, _ = make_local_ba_problem_numpy(**PCG_5D)
     np_data = {**np_data, "gp_huber": np.asarray(True)}
@@ -2200,6 +2406,7 @@ def pcg_5d(device) -> dict:
     launches_4 = kernel_launches(lambda: k_steps.solve(lin, lam))
     launches_lin = kernel_launches(lambda: problem.linearize(s))
     chi0 = float(problem.chi2(state0))
+    warm = profile_warm_start(device, data=data, state0=state0)
 
     _, s64, p64, lam64 = setup(torch.float64)
     for _ in range(PCG_5D_F64_ITERS):
@@ -2216,10 +2423,14 @@ def pcg_5d(device) -> dict:
                         "per_cg_step": (launches_4 - launches_fixed) / 4},
            "cg_step_bound": bound, "peak_mem_bytes": peak, "chi2_f64_after_2": chi64,
            "chi2_f32_vs_f64_after_2_rel": f32_vs_f64, "tolerance_f32_vs_f64": PCG_5D_F64_RTOL,
-           "seconds": time.perf_counter() - t0}
+           "warm_start": warm, "seconds": time.perf_counter() - t0}
     emit("pcg_5d", **rec)
     if not all(np.isfinite(it["chi2"]) for it in iters) or not iters[-1]["chi2"] < chi0:
         raise AssertionError(f"13c: chi2 {chi0} -> {[it['chi2'] for it in iters]}")
+    for name in ("cold", "warm"):
+        chain = warm[name]["chi2"]
+        if not (all(np.isfinite(chain)) and chain[-1] < chi0):
+            raise AssertionError(f"13c: the {name} chain's chi2 {chi0} -> {chain}")
     if not f32_vs_f64 <= PCG_5D_F64_RTOL:
         raise AssertionError(f"13c: f32 vs f64 chi2 after 2 iterations {f32_vs_f64:.3e}")
     return rec
@@ -2765,7 +2976,12 @@ def phase_sizes(size_inputs: dict) -> dict:
     return out
 
 
-def main() -> None:
+def main(argv=None) -> None:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--scenarios", action="store_true",
+                    help="after the default phases, run the opt-in scenarios: the "
+                         "figure-eight (160 frames) and the threaded pin (2 x 40 frames)")
+    args = ap.parse_args(argv)
     # 1. device
     if not torch.cuda.is_available():
         raise RuntimeError("chip_smoke: no CUDA device; the port's smoke run needs a GPU")
@@ -2833,6 +3049,8 @@ def main() -> None:
     emit("sizes_summary", card=smi, device_ms={k: v["device_ms"] for k, v in sizes.items()},
          launch_floor_ms={k: v["launch_floor_ms"] for k, v in sizes.items()},
          bound_ms={k: v["bound_ms"] for k, v in sizes.items()})
+    # the opt-in scenarios
+    x_launches = phase_scenarios(device, smi) if args.scenarios else 0
 
     print(smi, flush=True)
     print(json.dumps({"kernels": [{
@@ -2841,7 +3059,7 @@ def main() -> None:
         "source": "amcslam_tpu_torch/csrc/interp_chain.cu",
         "replaces": "amcslam_tpu/ops/pallas_chain.py:296",
         "launches": (launches + t_launches + s_launches + l_launches + f_launches + v_launches
-                     + m_launches),
+                     + m_launches + x_launches),
         "max_abs_err": max_abs_err,
         "ms": chain_ms["kernel"],
         "plain_ms": chain_ms["plain"],

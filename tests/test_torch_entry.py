@@ -8,6 +8,12 @@ scripts on the CPU.
     problems unsharded (float32, chi2 to 1e-5), and its printed line;
   * `examples/profile_orb_device.py` and `examples/profile_pcg.py` at cut
     sizes on the CPU, so the scripts cannot rot;
+  * `profile_pcg.profile_warm_start` (the reference's `profile_pcg.py
+    --warm`, :180-241) at a cut 5d (12 KF / 120 landmarks / 3 cameras) in
+    float64: the cold and the warm chain of 12 LM iterations against the
+    same chains run with the reference's `make_ba_problem_pcg`, chi2 per
+    iteration to rtol 1e-8 (tests/test_torch_pcg_ba.py's trajectory
+    tolerance);
   * with no device given every entry point asks for the card, and raises
     where there is none.
 """
@@ -20,6 +26,9 @@ import pytest
 import torch
 
 import __graft_entry__ as jentry
+import jax.numpy as jnp
+from amcslam_tpu.solver import ba as jba
+from amcslam_tpu.utils.synthetic import make_local_ba_problem as jmake
 from amcslam_tpu_torch import entry
 from amcslam_tpu_torch.examples import profile_orb_device, profile_pcg
 
@@ -79,6 +88,59 @@ def test_profile_pcg_runs_on_the_cpu():
     assert gba["cg_step_bound"]["bytes"] > 0 and math.isfinite(gba["fixed_ms"])
 
 
+WARM_CUT_5D = dict(n_kf=12, n_fixed=1, n_lm=120, n_cams=3, obs_per_lm=4, gpobs_per_lm=0,
+                   noise_px=0.5, seed=0)
+
+
+def reference_chains(config, n_chain, cap, tol):
+    """examples/profile_pcg.py:200-233 on `config` in float64: the cold
+    chain (x0 = None) and the warm chain (x0 = the previous (dxp, dxe))."""
+    data, state0, _ = jmake(**config, dtype=jnp.float64)
+    data = data._replace(gp_huber=jnp.asarray(True))
+    problem = jba.make_ba_problem_pcg(data, data.mg_valid, data.sg_valid, data.st_valid,
+                                      pcg_iters=cap, pcg_tol=tol)
+    lam = jnp.asarray(profile_pcg.LAM_5D, jnp.float64)
+
+    @jax.jit
+    def cold_iter(state):
+        dx, _, _ = problem.solve(problem.linearize(state), lam)
+        s2 = problem.retract(state, dx)
+        return s2, problem.chi2(s2)
+
+    @jax.jit
+    def warm_iter(state, x0):
+        dx, _, _ = problem.solve(problem.linearize(state), lam, x0=x0)
+        s2 = problem.retract(state, dx)
+        return s2, problem.chi2(s2), (dx[0], dx[1])
+
+    s, cold = state0, []
+    for _ in range(n_chain):
+        s, chi = cold_iter(s)
+        cold.append(float(chi))
+    s, warm = state0, []
+    x0 = (jnp.zeros((int(data.n_poses), 12)), jnp.zeros((int(data.n_ext), 6)))
+    for _ in range(n_chain):
+        s, chi, x0 = warm_iter(s, x0)
+        warm.append(float(chi))
+    return cold, warm
+
+
+def test_profile_pcg_warm_start_matches_reference():
+    cap, tol = profile_pcg.WARM_CAP, profile_pcg.WARM_TOL
+    out = profile_pcg.profile_warm_start(torch.device("cpu"), config=WARM_CUT_5D,
+                                         dtype=torch.float64)
+    cold, warm = reference_chains(WARM_CUT_5D, profile_pcg.WARM_CHAIN, cap, tol)
+    assert (out["n_chain"], out["cap"], out["tol"]) == (12, 40, 1e-3)
+    np.testing.assert_allclose(out["cold"]["chi2"], cold, rtol=1e-8)
+    np.testing.assert_allclose(out["warm"]["chi2"], warm, rtol=1e-8)
+    assert out["cold"]["chi2"] != out["warm"]["chi2"]
+    for rec in (out["cold"], out["warm"]):
+        assert len(rec["cg_steps"]) == 12 and all(0 < n <= cap for n in rec["cg_steps"])
+        assert rec["ms_per_lm_iteration"] > 0
+    want = abs(warm[-1] - cold[-1]) / abs(cold[-1])
+    np.testing.assert_allclose(out["final_chi2_rel_diff"], want, rtol=1e-6, atol=1e-14)
+
+
 def test_entry_points_ask_for_the_card():
     """With no device given the entry points run on the card, and raise on
     a machine without one instead of running on the CPU."""
@@ -92,3 +154,5 @@ def test_entry_points_ask_for_the_card():
         profile_orb_device.main([])
     with pytest.raises(RuntimeError, match="no CUDA device"):
         profile_pcg.main([])
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        profile_pcg.main(["--warm"])

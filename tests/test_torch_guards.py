@@ -1,6 +1,8 @@
 """Guards of the PyTorch port: it never imports JAX or the JAX package, and
 builds nothing from the JAX package's tree, so it runs where neither is
-installed."""
+installed; and it covers the JAX package: every public top-level name of
+every reference module has a counterpart in the port module at the same
+path, and every program of the reference has its port."""
 
 import ast
 import pkgutil
@@ -168,3 +170,124 @@ def test_no_port_file_builds_a_path_into_the_reference():
         bad = [s for s in _code_strings(tree)
                if component.search(s) and " " not in s and not citation.search(s)]
         assert not bad, (path, bad)
+
+
+# The port's coverage of the JAX package, read from the sources with `ast`
+# (nothing of either package is imported). A reference module maps to the
+# port module at the same path unless MODULE_ALIASES names another (None: no
+# port module, every public name exempt); a renamed name maps through
+# NAME_ALIASES.
+MODULE_ALIASES = {
+    "ops/pallas_chain.py": "ops/interp_chain.py",      # the Pallas kernel's CUDA port
+    "frontend/orb_tpu.py": "frontend/orb_device.py",   # the batched ORB on the device
+    "native/__init__.py": "native.py",                  # the native loader, one module
+    "ops/precision.py": None,
+}
+NAME_ALIASES = {
+    ("frontend/orb_tpu.py", "ORBExtractorTPU"): "ORBExtractorDevice",
+    ("frontend/orb_tpu.py", "build_orb_tpu"): "build_orb_device",
+}
+EXEMPT = {
+    ("ops/precision.py", "exact"): "a TPU workaround: f32 matmuls at HIGHEST precision; the "
+                                   "port sets torch's matmul precision once for the package",
+    ("ops/precision.py", "fdtype"): "a TPU workaround: the float dtype of the x64 setting; the "
+                                    "port passes its dtype explicitly",
+    ("ops/precision.py", "smm"): "a TPU workaround: small matmuls as broadcast sums to avoid "
+                                 "bf16 passes; the package-level setting makes them exact",
+    ("ops/pallas_chain.py", "available"): "whether Pallas lowers on this backend; the CUDA "
+                                          "kernel builds or raises, the CPU takes the plain "
+                                          "version by the tensor's device",
+}
+# The reference's programs (repo root and examples/) and their ports;
+# None: not ported in this round.
+PROGRAMS = {
+    "__graft_entry__.py": "amcslam_tpu_torch/entry.py",
+    "examples/e2e_rendered.py": "amcslam_tpu_torch/examples/e2e_rendered.py",
+    "examples/multicam_amv.py": "amcslam_tpu_torch/examples/multicam_amv.py",
+    "examples/profile_orb_tpu.py": "amcslam_tpu_torch/examples/profile_orb_device.py",
+    "examples/profile_pcg.py": "amcslam_tpu_torch/examples/profile_pcg.py",
+    # the earlier round's TPU benchmark, taken up by the port's benchmark
+    "bench.py": None,
+    "bench_all.py": None,
+}
+REF_DIR = REPO / "amcslam_tpu"
+
+
+def public_defs(path) -> set:
+    """Public top-level functions, classes and constants (assigned names)."""
+    out = set()
+    for node in ast.parse(path.read_text()).body:
+        if isinstance(node, (ast.FunctionDef, ast.AsyncFunctionDef, ast.ClassDef)):
+            out.add(node.name)
+        elif isinstance(node, (ast.Assign, ast.AnnAssign)):
+            targets = node.targets if isinstance(node, ast.Assign) else [node.target]
+            out.update(n.id for t in targets for n in ast.walk(t) if isinstance(n, ast.Name))
+    return {n for n in out if not n.startswith("_")}
+
+
+def top_level_bindings(path) -> set:
+    """Every name a module binds at its top level, imports included."""
+    out = set()
+    for node in ast.parse(path.read_text()).body:
+        if isinstance(node, (ast.Import, ast.ImportFrom)):
+            out.update((a.asname or a.name).split(".")[0] for a in node.names)
+        for n in ast.walk(node):
+            if isinstance(n, (ast.FunctionDef, ast.AsyncFunctionDef, ast.ClassDef)):
+                out.add(n.name)
+            elif isinstance(n, ast.Name) and isinstance(n.ctx, ast.Store):
+                out.add(n.id)
+    return out
+
+
+def reference_modules():
+    return sorted(p.relative_to(REF_DIR).as_posix() for p in REF_DIR.rglob("*.py"))
+
+
+def test_port_covers_every_public_name_of_the_reference():
+    assert len(reference_modules()) >= 50
+    missing = []
+    for rel in reference_modules():
+        names = public_defs(REF_DIR / rel)
+        target = MODULE_ALIASES.get(rel, rel)
+        have = set() if target is None else top_level_bindings(PKG_DIR / target)
+        assert target is None or (PKG_DIR / target).is_file(), rel
+        for name in sorted(names):
+            if (rel, name) in EXEMPT:
+                continue
+            if NAME_ALIASES.get((rel, name), name) not in have:
+                missing.append(f"{rel}::{name} -> {target}")
+    assert not missing, missing
+
+
+def test_coverage_exemptions_and_aliases_are_current():
+    """Every exemption names a public name of the reference that the port
+    lacks, and every alias a reference name and an existing port name."""
+    for (rel, name), reason in EXEMPT.items():
+        assert reason and name in public_defs(REF_DIR / rel), (rel, name)
+        target = MODULE_ALIASES.get(rel, rel)
+        assert target is None or name not in top_level_bindings(PKG_DIR / target), (rel, name)
+    for (rel, name), new in NAME_ALIASES.items():
+        assert name in public_defs(REF_DIR / rel)
+        assert new in top_level_bindings(PKG_DIR / MODULE_ALIASES[rel])
+    for rel, target in MODULE_ALIASES.items():
+        assert (REF_DIR / rel).is_file(), rel
+        if target is None:
+            assert all((rel, n) in EXEMPT for n in public_defs(REF_DIR / rel)), rel
+
+
+def test_every_program_of_the_reference_has_its_port():
+    programs = sorted([p.name for p in REPO.glob("*.py")
+                       if p.name not in ("chip_smoke.py", "setup.py")]
+                      + [f"examples/{p.name}" for p in (REPO / "examples").glob("*.py")])
+    assert programs == sorted(PROGRAMS)
+    for ref, port in PROGRAMS.items():
+        if port is None:
+            continue
+        # a program the reference runs as a script is a script in the port too
+        assert has_main_guard(REPO / port) == has_main_guard(REPO / ref), port
+        assert public_defs(REPO / port), port
+
+
+def has_main_guard(path) -> bool:
+    return any(isinstance(n, ast.If) and "__main__" in ast.unparse(n.test)
+               for n in ast.parse(path.read_text()).body)
