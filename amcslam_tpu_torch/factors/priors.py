@@ -25,7 +25,7 @@ def velocity_residual(v: torch.Tensor) -> torch.Tensor:
 def velocity_jac(v: torch.Tensor) -> torch.Tensor:
     """(..., 1, 12) Jacobian wrt the pose-vel vertex: d r / d v[2] = 1."""
     J = torch.zeros(*v.shape[:-1], 1, 12, dtype=v.dtype, device=v.device)
-    J[..., 0, 8] = 1.0  # slot 6+2 in [dxi(6), dv(6)]
+    J[..., 0, 8].fill_(1.0)  # slot 6+2 in [dxi(6), dv(6)]
     return J
 
 

@@ -23,6 +23,7 @@ several hundred small launches per call.
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import threading
 
@@ -31,11 +32,17 @@ import torch
 from .. import _build
 from ..factors import reprojection
 
-# Launches of the CUDA kernel since import (or since a caller reset it):
-# lets a run show that the main path went through the kernel. The threaded
-# pipeline launches from two threads, so the count is taken under a lock.
+# Launches of the CUDA kernel since import (or since `reset_launches`): lets
+# a run show that the main path went through the kernel. `BY_SIZE` holds the
+# same launches by entry and size ("indexed S=1024"). A launch inside a CUDA
+# graph capture (solver/graphs.py) runs at every replay of the graph, not at
+# the capture: the capture records it (`recording`) and each replay adds
+# the graph's record (`count_replay`). The threaded pipeline launches from
+# two threads, so the counts are taken under a lock.
 LAUNCHES = 0
+BY_SIZE: dict[str, int] = {}
 _LAUNCHES_LOCK = threading.Lock()
+_RECORD = threading.local()
 
 _LIB_NAME = "interp_chain"
 # per endpoint: T, v, times, rows (or NULL), step, table length
@@ -139,17 +146,55 @@ def _bind(end1, end2, t):
     return getattr(_library(), _FN[t.dtype]), args, packs
 
 
-def _launch(end1, end2, t):
-    """One kernel launch (see `_bind`); returns the packs."""
+def reset_launches() -> None:
+    """Set `LAUNCHES` to 0 and empty `BY_SIZE`."""
     global LAUNCHES
+    with _LAUNCHES_LOCK:
+        LAUNCHES = 0
+        BY_SIZE.clear()
+
+
+def count_replay(record: dict) -> None:
+    """Add one replay of a captured graph: `record` maps "entry S=n" to the
+    launches the graph holds."""
+    global LAUNCHES
+    if not record:
+        return
+    with _LAUNCHES_LOCK:
+        for key, n in record.items():
+            LAUNCHES += n
+            BY_SIZE[key] = BY_SIZE.get(key, 0) + n
+
+
+@contextlib.contextmanager
+def recording():
+    """While the body runs (a CUDA graph capture in this thread), launches
+    are recorded in the yielded dict instead of counted."""
+    _RECORD.counts = rec = {}
+    try:
+        yield rec
+    finally:
+        _RECORD.counts = None
+
+
+def _count(entry: str, S: int) -> None:
+    rec = getattr(_RECORD, "counts", None)
+    key = f"{entry} S={S}"
+    if rec is not None:
+        rec[key] = rec.get(key, 0) + 1
+    else:
+        count_replay({key: 1})
+
+
+def _launch(end1, end2, t, entry="packs"):
+    """One kernel launch (see `_bind`) for the named entry; returns the packs."""
     fn, args, packs = _bind(end1, end2, t)
     if t.shape[0] == 0:
         return packs
     rc = fn(*args)
     if rc != 0:
         raise RuntimeError(f"interp_chain kernel launch failed: CUDA error {rc}")
-    with _LAUNCHES_LOCK:
-        LAUNCHES += 1
+    _count(entry, t.shape[0])
     return packs
 
 
@@ -184,7 +229,7 @@ def gp_interp_packs_indexed(T, v, times, i, j, t):
     _check_rows("gp_interp_packs_indexed", (("i", i), ("j", j)), N, t.device)
     if t.device.type == "cpu":
         return gp_interp_packs_indexed_ref(T, v, times, i, j, t)
-    return _launch((T, v, times, i, 0, 0), (T, v, times, j, 0, 0), t)
+    return _launch((T, v, times, i, 0, 0), (T, v, times, j, 0, 0), t, "indexed")
 
 
 def gp_interp_packs_pair(T, v, t1, t2, t):
@@ -199,4 +244,4 @@ def gp_interp_packs_pair(T, v, t1, t2, t):
             ("t", t, (S,))))
     if t.device.type == "cpu":
         return gp_interp_packs_pair_ref(T, v, t1, t2, t)
-    return _launch((T, v, t1, None, 0, 0), (T, v, t2, None, 0, 1), t)
+    return _launch((T, v, t1, None, 0, 0), (T, v, t2, None, 0, 1), t, "pair")

@@ -164,7 +164,7 @@ def se3_matrix(R: torch.Tensor, t: torch.Tensor) -> torch.Tensor:
     """Assemble (..., 4, 4) homogeneous transforms from rotation + translation."""
     top = torch.cat([R, t[..., :, None]], -1)
     bottom = torch.zeros(*R.shape[:-2], 1, 4, dtype=R.dtype, device=R.device)
-    bottom[..., 0, 3] = 1.0
+    bottom[..., 0, 3].fill_(1.0)  # a fill on the device, not a copy from the host
     return torch.cat([top, bottom], -2)
 
 

@@ -10,10 +10,11 @@ Sequential (or caller-threaded) consumer of new keyframes:
 Port of `amcslam_tpu/pipeline/local_mapping.py`. The numeric stages run on
 the mapper's device: the batched DLT triangulation (one SVD call, no pow2
 pad rows; in float64, the reference's dtype in its float64 runs) and the
-local BA in the mapper's dtype (a plain call of `solver.ba.local_gp_ba`, or
-`local_gp_ba_interruptible` in threaded mode; the reference's jitted
-closure, `block_until_ready` and debug rerun are gone). Each solve's
-write-back is one device-to-host read.
+local BA in the mapper's dtype (`solver.ba.local_gp_ba`, or
+`local_gp_ba_interruptible` in threaded mode, CUDA-graph replays on the
+card in place of the reference's jitted closure; its `block_until_ready`
+and debug rerun are gone). Each solve's write-back is one device-to-host
+read.
 """
 
 from __future__ import annotations

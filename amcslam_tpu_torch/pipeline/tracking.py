@@ -14,8 +14,9 @@ Port of `amcslam_tpu/pipeline/tracking.py`. Host code orchestrates on
 numpy; the numeric stages run on the tracker's device in its dtype:
 MC-RANSAC (ransac.vel_ransac), the 4-round pose solve (solver.pose_solver,
 whose GP chain is the CUDA kernel on the card) and the relocalization PnP
-(ransac.mlpnp). The reference's `jax.jit(pose_gp_optimize)` is a plain
-call. Each solve's write-back is one device-to-host read, as the reference
+(ransac.mlpnp). The reference's `jax.jit(pose_gp_optimize)` and
+`jax.jit(mc_ransac)` become CUDA-graph replays on the card
+(solver/graphs.py). Each solve's write-back is one device-to-host read, as the reference
 batches its `device_get`s. RANSAC and PnP samples come from the same
 `np.random.RandomState(0)` in the same order as the reference's, so both
 packages draw the same hypotheses.

@@ -11,6 +11,15 @@ from __future__ import annotations
 import torch
 
 
+def _scalar(x, dtype, device) -> torch.Tensor:
+    """`torch.as_tensor(x, dtype=dtype, device=device)` without a copy from
+    the host for a Python number (a fill on the device), which a CUDA graph
+    capture does not allow."""
+    if isinstance(x, torch.Tensor):
+        return x.to(dtype=dtype, device=device)
+    return torch.full((), x, dtype=dtype, device=device)
+
+
 def huber_rho01(s: torch.Tensor, delta, enabled) -> tuple[torch.Tensor, torch.Tensor]:
     """(rho0, rho1) of the Huber kernel at squared error s.
 
@@ -19,8 +28,8 @@ def huber_rho01(s: torch.Tensor, delta, enabled) -> tuple[torch.Tensor, torch.Te
                            rho1 = delta / sqrt(s)
     `delta` and `enabled` are scalars or tensors broadcastable to s.
     """
-    delta = torch.as_tensor(delta, dtype=s.dtype, device=s.device)
-    enabled = torch.as_tensor(enabled, dtype=torch.bool, device=s.device)
+    delta = _scalar(delta, s.dtype, s.device)
+    enabled = _scalar(enabled, torch.bool, s.device)
     dsqr = delta * delta
     inlier = s <= dsqr
     sqrte = torch.sqrt(torch.clamp_min(s, torch.finfo(s.dtype).tiny))

@@ -203,9 +203,40 @@ result line):
                launches and share of the tick of each stage (resize, FAST,
                NMS and the cells, top-K, orientation, blur, BRIEF) and of
                the full batched extractor.
+ 16. graphs — the System's solves as CUDA-graph replays (solver/graphs.py)
+               against their eager path (`eager=True`) on the card:
+               `mc_ransac` and `pose_gp_optimize` (per edge and through the
+               table) on phase 8's frame, `local_gp_ba` at the headline
+               window and `local_gp_ba_interruptible` aborted after its
+               first segment (the local BA with deterministic algorithms
+               on). Float64 and float32, the first graphed call (warm-up,
+               capture, replays) and a second (replays only) each against
+               an eager call: equal bit for bit, float64 to 1e-12 relative
+               where not (iteration counts, masks and flags always equal).
+               Then in float32: graph replays, captures, steps run as plain
+               calls, host reads and chain launches per solve, graphed and
+               eager; ms per solve in turns (eager, graph, graph, eager; 5
+               solves each); a torch.profiler record of one solve each way
+               (wall and device ms, busy share, device kernels, the host's
+               CUDA runtime calls by name). It runs after phase 8.
+ 17. threaded pin — tests/test_e2e_scenarios.py:157-200 at its full 40
+               frames (seed 3), sequential then threaded, host ORB, with the
+               checks of tests/test_torch_e2e_scenarios.py: every frame
+               after the first OK (sequential); at least 40 % OK and OK in
+               the last 5 (threaded); both ATEs under 2 %; the threaded
+               median tracking ms from frame 10 on under 0.5x the
+               sequential one. It runs after phase 15.
 
-Phases 13, 14 and 15 run after phase 12 and before phase 10; the kernels
-line's launches include phase 14's in every rank. The kernels line keeps
+On the card the pose solve, `mc_ransac` and the local BA replay CUDA graphs
+(solver/graphs.py). A replayed graph runs the chain kernel launches its
+capture recorded, so the counts of chain launches (`interp_chain.LAUNCHES`,
+by entry and size `interp_chain.BY_SIZE`) and of linearizations
+(`solver/lm.LINEARIZATIONS`) are taken per replay; a System run starts
+with no cached graphs (`graphs.clear()`), as a fresh process does, and
+reports its captures, replays and peak memory.
+
+Phases 13, 14, 15 and 17 run after phase 12 and before phase 10; the
+kernels line's launches include phase 14's in every rank. The kernels line keeps
 `ms` and `plain_ms` as phase 5 measures them (the
 entry and the plain version at the headline's 1024 combos, host included);
 phase 10's device time per launch at that size is `device_ms`.
@@ -225,17 +256,15 @@ run (20 frames more than tests/test_loop_e2e.py's 70) with nothing cut
 elsewhere. Every line carries `t_s`, the seconds since the start.
 
 `python3 chip_smoke.py --scenarios` runs, after phase 10, the opt-in
-scenarios of tests/test_e2e_scenarios.py at full size, host ORB, with the
+scenario of tests/test_e2e_scenarios.py at full size, host ORB, with the
 checks of tests/test_torch_e2e_scenarios.py: the figure-eight (:38-60,
 160 frames: at least 2 closures, ATE < 0.5 %, at least 2 loop-edge
-records) and the threaded pin (:157-200, 40 frames sequential then
-threaded: the threaded median tracking ms from frame 10 on under 0.5x the
-sequential one, both ATEs under 2 %). Each prints its closures and their
-frames, loop-edge records, ATE, per-frame tracking median and p90, the
-closer's stage ms and chain launches, and every check by name; a check the
+records). It prints, as phase 17 does, its closures and their frames,
+loop-edge records, ATE, per-frame tracking median and p90, the closer's
+stage ms and chain launches, and every check by name; a check the
 reference's own CPU run fails (`KNOWN_REFERENCE_FAULTS`) is reported as
 that fault, and must fail on the card too. Any other failed check fails
-the run. The default run does not run them.
+the run. The default run does not run it.
 
 The last three lines are the card's `nvidia-smi` name and power limit, the
 kernels' JSON record and the result line.
@@ -277,7 +306,7 @@ from amcslam_tpu_torch.pipeline.keyframe_database import KeyFrameDatabase
 from amcslam_tpu_torch.pipeline.loop_closing import LoopClosing
 from amcslam_tpu_torch.pipeline.system import System
 from amcslam_tpu_torch.ransac import two_view, vel_ransac
-from amcslam_tpu_torch.solver import ba, pose_solver, sim3_opt, vi_ba
+from amcslam_tpu_torch.solver import ba, graphs, pose_solver, sim3_opt, vi_ba
 from amcslam_tpu_torch.solver import lm as tlm
 from amcslam_tpu_torch.utils.io import ate_rmse, write_png_gray
 from amcslam_tpu_torch.utils.synthetic import (build_loop_map, make_essential_graph_numpy,
@@ -329,7 +358,11 @@ def max_rel(a: torch.Tensor, b: torch.Tensor) -> float:
 
 
 def sync() -> None:
-    torch.cuda.synchronize()
+    """Wait for the calling thread's stream, where every solve's work ends
+    (solver/graphs.py joins its own stream back to it). Not the device: a
+    device-wide synchronize fails while another thread (a threaded
+    System's mapper) captures a CUDA graph."""
+    torch.cuda.current_stream().synchronize()
 
 
 # ---------------------------------------------------------------------------
@@ -473,23 +506,11 @@ def chain_inputs(data, state) -> tuple:
 
 
 def run_slice(data, state):
-    """local_gp_ba with a count of the linearizations it runs."""
-    n_lin = 0
-    make = ba.make_ba_problem
-
-    def counting(*args, **kw):
-        problem = make(*args, **kw)
-
-        def linearize(s):
-            nonlocal n_lin
-            n_lin += 1
-            return problem.linearize(s)
-
-        return problem._replace(linearize=linearize)
-
-    with mock.patch.object(ba, "make_ba_problem", counting):
-        res = ba.local_gp_ba(data, state)
-    return res, n_lin
+    """local_gp_ba with a count of the linearizations it runs (eager or
+    replayed)."""
+    lin0 = tlm.LINEARIZATIONS["local_ba"]
+    res = ba.local_gp_ba(data, state)
+    return res, tlm.LINEARIZATIONS["local_ba"] - lin0
 
 
 def assert_close(name, got, ref, rtol, atol) -> float:
@@ -513,7 +534,7 @@ def phase_slice(device, np_data, np_state):
     real = check_f32(tuple(a.double() for a in chain.values()))
 
     torch.cuda.reset_peak_memory_stats()
-    interp_chain.LAUNCHES = 0
+    interp_chain.reset_launches()
     sync()
     t0 = time.perf_counter()
     res, n_lin = run_slice(data, state0)
@@ -746,38 +767,38 @@ def tracking_frame():
 
 
 class Counts:
-    """Host reads of the LM loops and linearizations of the pose solver,
-    counted through the solvers' own seams while a `with` block runs."""
+    """Host reads of the LM loops (through the solvers' own seam), pose-solve
+    linearizations (`tlm.LINEARIZATIONS`), graph replays, captures and steps
+    run as plain calls (solver/graphs.py), since the `with` block began."""
 
     def __init__(self):
         self.reads = 0
-        self.lin = 0
+        self._lin0 = 0
+        self._graphs0 = {}
+
+    @property
+    def lin(self) -> int:
+        return tlm.LINEARIZATIONS["pose"] - self._lin0
+
+    def graphs(self) -> dict:
+        now = graphs.counts()
+        return {k: now[k] - self._graphs0[k] for k in ("replays", "captures", "eager_steps")}
 
     def __enter__(self):
-        read, make = tlm._read, pose_solver.make_problem
+        read = tlm._read
 
         def counting_read(t):
             self.reads += 1
             return read(t)
 
-        def counting_make(*args, **kw):
-            problem = make(*args, **kw)
-
-            def linearize(s):
-                self.lin += 1
-                return problem.linearize(s)
-
-            return problem._replace(linearize=linearize)
-
-        self._patches = [mock.patch.object(tlm, "_read", counting_read),
-                         mock.patch.object(pose_solver, "make_problem", counting_make)]
-        for p in self._patches:
-            p.start()
+        self._lin0 = tlm.LINEARIZATIONS["pose"]
+        self._graphs0 = graphs.counts()
+        self._patch = mock.patch.object(tlm, "_read", counting_read)
+        self._patch.start()
         return self
 
     def __exit__(self, *exc):
-        for p in self._patches:
-            p.stop()
+        self._patch.stop()
 
 
 def pose_flags(ok, inl, n_m, n_s):
@@ -830,19 +851,21 @@ def phase_tracking(device):
     # the main path: counts set to 0 just before, read just after
     per = {}
     sync()
-    interp_chain.LAUNCHES = 0
+    interp_chain.reset_launches()
     with Counts() as c:
         ok, v_best, inl, n_in = ransac(rdata)
         flags = pose_flags(ok, inl, n_m, n_s)
         sync()
-        per["mc_ransac"] = {"host_reads": c.reads, "kernel_launches": interp_chain.LAUNCHES}
+        per["mc_ransac"] = {"host_reads": c.reads, "kernel_launches": interp_chain.LAUNCHES,
+                            "graphs": c.graphs()}
         res = {}
         for b in ("edge", "table"):
-            reads0, lin0, launches0 = c.reads, c.lin, interp_chain.LAUNCHES
+            reads0, lin0, launches0, g0 = c.reads, c.lin, interp_chain.LAUNCHES, c.graphs()
             res[b] = pose_solver.pose_gp_optimize(*pose[b], *flags)
             sync()
             per[b] = {"host_reads": c.reads - reads0, "linearizations": c.lin - lin0,
-                      "kernel_launches": interp_chain.LAUNCHES - launches0}
+                      "kernel_launches": interp_chain.LAUNCHES - launches0,
+                      "graphs": {k: n - g0[k] for k, n in c.graphs().items()}}
     launches = interp_chain.LAUNCHES
 
     true_in = int((~injected).sum())
@@ -939,6 +962,171 @@ def profile_tracking(rdata, ransac, pose, flags, out_dir) -> None:
 
 
 # ---------------------------------------------------------------------------
+# phase 16: the solves as CUDA-graph replays against the eager path
+# ---------------------------------------------------------------------------
+
+GRAPH_TIMED = 5     # solves per timing block
+GRAPH_F64_TOL = 1e-12
+
+
+def graph_solves(device, dtype, np_data, np_state) -> dict:
+    """{name: (solve(eager) -> result, deterministic)}: phase 8's frame
+    (MC-RANSAC, the pose solve per edge and through the table) and the
+    headline local BA, whole and with an abort after its first segment.
+    The local BA's runs take deterministic algorithms: index_add_'s atomics
+    would part two runs of one op sequence at roundoff."""
+    branches, sn, _, rf, samples, _ = tracking_frame()
+    n_m, n_s = branches["edge"]["mg_t"].shape[0], branches["edge"]["st_obs"].shape[0]
+    kw = dict(device=device, dtype=dtype)
+    rdata = convert.vel_ransac_from_numpy(rf, **kw)
+    samp = torch.tensor(samples, device=device)
+    ok, _, inl, _ = vel_ransac.mc_ransac(rdata, samp, RANSAC_THRESHOLD, RANSAC_MIN_MATCH,
+                                         eager=True)
+    flags = pose_flags(ok, inl, n_m, n_s)
+    pose = {b: convert.pose_from_numpy(d, sn, **kw) for b, d in branches.items()}
+    data, state = convert.ba_from_numpy(np_data, np_state, **kw)
+    return {
+        "mc_ransac": (lambda eager: vel_ransac.mc_ransac(
+            rdata, samp, RANSAC_THRESHOLD, RANSAC_MIN_MATCH, eager=eager), False),
+        "pose_edge": (lambda eager: pose_solver.pose_gp_optimize(
+            *pose["edge"], *flags, eager=eager), False),
+        "pose_table": (lambda eager: pose_solver.pose_gp_optimize(
+            *pose["table"], *flags, eager=eager), False),
+        "local_gp_ba": (lambda eager: ba.local_gp_ba(data, state, eager=eager), True),
+        "local_gp_ba_abort": (lambda eager: ba.local_gp_ba_interruptible(
+            data, state, seg_iters=4, should_abort=lambda: True, eager=eager), True),
+    }
+
+
+def flat(x) -> list:
+    """The tensors and host numbers of a solve's result, in order."""
+    if isinstance(x, torch.Tensor):
+        return [x]
+    if isinstance(x, (bool, int, float)):
+        return [x]
+    if isinstance(x, (tuple, list)):
+        return [t for a in x for t in flat(a)]
+    raise TypeError(f"unexpected result part {type(x)}")
+
+
+def graph_vs_eager(want: list, got: list, dtype) -> dict:
+    """Bitwise equality of a replayed solve's results with the eager ones;
+    float64 results that differ are held to GRAPH_F64_TOL relative (a replay
+    runs the captured kernels, which may not be the eager call's own, e.g. a
+    library's choice at capture). Host numbers, integer and bool tensors
+    (iteration counts, inlier masks) must be equal."""
+    bitwise, worst, exact_differ = True, 0.0, []
+    for i, (a, b) in enumerate(zip(want, got, strict=True)):
+        if not isinstance(a, torch.Tensor):
+            if a != b:
+                exact_differ.append(i)
+            continue
+        a, b = a.cpu(), b.cpu()
+        if torch.equal(a, b):
+            continue
+        bitwise = False
+        if a.is_floating_point():
+            worst = max(worst, max_rel(b, a))
+        else:
+            exact_differ.append(i)
+    ok = not exact_differ and (bitwise or (dtype == torch.float64 and worst <= GRAPH_F64_TOL))
+    return {"ok": ok, "bitwise": bitwise, "max_rel": worst, "exact_parts_differ": exact_differ}
+
+
+@contextlib.contextmanager
+def deterministic(on: bool):
+    if not on:
+        yield
+        return
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        yield
+    finally:
+        torch.use_deterministic_algorithms(False)
+
+
+def solve_counts(fn) -> dict:
+    """Graph replays, captures, steps run as plain calls, host reads and
+    chain launches of one call of `fn`."""
+    sync()
+    launches0 = interp_chain.LAUNCHES
+    with Counts() as c:
+        fn()
+        sync()
+        g = c.graphs()
+    return {**g, "host_reads": c.reads, "chain_launches": interp_chain.LAUNCHES - launches0}
+
+
+def profile_solve(fn) -> dict:
+    """torch.profiler over one call: wall ms, device ms, busy share, device
+    kernels and the host's CUDA runtime calls by name."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity
+    from torch.profiler import profile as torch_profile
+
+    with torch_profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        sync()
+        t0 = time.perf_counter()
+        fn()
+        sync()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    events = prof.key_averages()
+    kernels = [e for e in events if e.device_type != DeviceType.CPU]
+    dev_ms = sum(e.self_device_time_total for e in kernels) / 1e3
+    runtime = {e.key: e.count for e in events
+               if e.device_type == DeviceType.CPU and e.key.startswith("cu")}
+    return {"wall_ms": wall_ms, "device_ms": dev_ms, "device_busy_share": dev_ms / wall_ms,
+            "device_kernels": sum(e.count for e in kernels), "runtime_calls": runtime}
+
+
+def phase_graphs(device, smi, np_data, np_state) -> None:
+    """16: each solve replayed from its CUDA graphs against its eager path on
+    the card (`eager=True`): float64 and float32, the first graphed call
+    (warm-up, capture and replays) and a second (replays only) each against
+    one eager call; then, in float32, counts per solve (replays, captures,
+    host reads, chain launches), ms per solve in turns (eager, graph, graph,
+    eager; median of GRAPH_TIMED calls each) and a torch.profiler record of
+    one call each way."""
+    t_phase = time.perf_counter()
+    equal = {}
+    for dtype in (torch.float64, torch.float32):
+        for name, (fn, det) in graph_solves(device, dtype, np_data, np_state).items():
+            with deterministic(det):
+                want = flat(fn(True))
+                got = [flat(fn(False)) for _ in range(2)]
+            sync()
+            key = f"{name}_{str(dtype).split('.')[-1]}"
+            equal[key] = [graph_vs_eager(want, g, dtype) for g in got]
+    emit("graphs_equal", results=equal, f64_tol=GRAPH_F64_TOL)
+    failed = [k for k, v in equal.items() if not all(r["ok"] for r in v)]
+    if failed:
+        raise AssertionError(f"graph replay differs from the eager path: {failed}")
+
+    per = {}
+    for name, (fn, _) in graph_solves(device, torch.float32, np_data, np_state).items():
+        graph, eager = (lambda fn=fn: fn(False)), (lambda fn=fn: fn(True))
+        graph()
+        graph()
+        eager()
+        counts = {"graph": solve_counts(graph), "eager": solve_counts(eager)}
+        ms = {"graph": [], "eager": []}
+        for variant in ("eager", "graph", "graph", "eager"):
+            ms[variant].append(time_calls(graph if variant == "graph" else eager,
+                                          n_warm=0, n_iter=GRAPH_TIMED, n_rep=1)[0])
+        prof = {"graph": profile_solve(graph), "eager": profile_solve(eager)}
+        per[name] = {"counts": counts, "ms_turns": ms,
+                     "ms": {k: statistics.median(v) for k, v in ms.items()}, "profile": prof}
+        emit("graphs_solve", name=name, dtype="float32", **per[name])
+        if counts["graph"]["captures"]:
+            raise AssertionError(f"{name}: a warm graphed call captured {counts['graph']}")
+    emit("graphs_summary", card=smi, seconds=time.perf_counter() - t_phase,
+         ms={k: v["ms"] for k, v in per.items()},
+         device_busy_share={k: {m: v["profile"][m]["device_busy_share"] for m in v["profile"]}
+                            for k, v in per.items()},
+         counts={k: v["counts"] for k, v in per.items()})
+
+
+# ---------------------------------------------------------------------------
 # phase 9: the System entry point
 # ---------------------------------------------------------------------------
 
@@ -962,51 +1150,54 @@ def system_sequence():
     return frames, rig, Ts, path
 
 
+def capturing() -> bool:
+    """A CUDA graph capture is underway on the current stream."""
+    return torch.cuda.is_available() and torch.cuda.is_current_stream_capturing()
+
+
 class SystemProbe:
     """Counts and sizes on the System's path, taken through its seams while a
-    `with` block runs: local-BA linearizations, the largest local-BA window
-    and pose problem (real and padded), the local-mapping time of each
-    `track_multicamera` call."""
+    `with` block runs: linearizations by kind of solve (`lin` the local
+    BA's; eager or replayed, `tlm.LINEARIZATIONS`), the chain's launches by
+    entry and size (`interp_chain.BY_SIZE`, replays included), graph
+    captures and replays, the largest local-BA window and pose problem (real
+    and padded), and copies of the chain's largest inputs (taken outside
+    graph captures, where the inputs hold values)."""
 
     def __init__(self):
         self.lin = 0
+        self.lin_by_kind = {}
         self.lba = {}
         self.pose = {}
-        self.chain_calls = {}   # "entry S=n" -> calls (one launch each on the card)
+        self.chain_calls = {}   # "entry S=n" -> launches on the card
+        self.graphs = {}        # graph captures, replays, steps run as plain calls
         self.chain_args = {}    # entry -> (S, inputs) of its largest call
-        self.lba_combos = (-1,)  # (U, data, state, sid_cols, it_sid, it_t), largest U
+        self.lba_combos = (-1,)  # (U, indexed-entry inputs, combo structure ids), largest U
 
     def __enter__(self):
-        make, ext_lba = ba.make_ba_problem, local_mapping.extract_local_ba
+        ext_lba = local_mapping.extract_local_ba
         ext_pose = tracking.extract_pose_problem
         entries = {"indexed": interp_chain.gp_interp_packs_indexed,
                    "pair": interp_chain.gp_interp_packs_pair}
         packs = ba._interp_packs
+        self._lin0 = dict(tlm.LINEARIZATIONS)
+        self._by_size0 = dict(interp_chain.BY_SIZE)
+        self._graphs0 = graphs.counts()
 
         def lba_packs(data, state, sid_cols, it_sid, it_t):
-            if it_t.shape[0] >= self.lba_combos[0]:
-                self.lba_combos = (it_t.shape[0], data, state, sid_cols, it_sid, it_t)
+            if it_t.shape[0] >= self.lba_combos[0] and not capturing():
+                inputs = indexed_inputs(data, state, sid_cols, it_sid, it_t)
+                self.lba_combos = (it_t.shape[0], tuple(a.clone() for a in inputs),
+                                   it_sid.clone())
             return packs(data, state, sid_cols, it_sid, it_t)
 
         def sized(name):
             def call(*args):
                 S = int(args[-1].shape[0])
-                key = f"{name} S={S}"
-                if S:
-                    self.chain_calls[key] = self.chain_calls.get(key, 0) + 1
-                if S >= self.chain_args.get(name, (-1,))[0]:
-                    self.chain_args[name] = (S, args)
+                if S >= self.chain_args.get(name, (-1,))[0] and not capturing():
+                    self.chain_args[name] = (S, tuple(a.clone() for a in args))
                 return entries[name](*args)
             return call
-
-        def counting_make(*args, **kw):
-            problem = make(*args, **kw)
-
-            def linearize(s):
-                self.lin += 1
-                return problem.linearize(s)
-
-            return problem._replace(linearize=linearize)
 
         def lba(*args, **kw):
             data, state, h = ext_lba(*args, **kw)
@@ -1029,8 +1220,7 @@ class SystemProbe:
                                         "U": int(data.it_t.shape[0])}}
             return data, state, h
 
-        self._patches = [mock.patch.object(ba, "make_ba_problem", counting_make),
-                         mock.patch.object(local_mapping, "extract_local_ba", lba),
+        self._patches = [mock.patch.object(local_mapping, "extract_local_ba", lba),
                          mock.patch.object(tracking, "extract_pose_problem", pose),
                          mock.patch.object(ba, "_interp_packs", lba_packs),
                          *(mock.patch.object(interp_chain, f"gp_interp_packs_{name}", sized(name))
@@ -1042,6 +1232,15 @@ class SystemProbe:
     def __exit__(self, *exc):
         for p in self._patches:
             p.stop()
+        self.lin_by_kind = {k: n - self._lin0.get(k, 0) for k, n in tlm.LINEARIZATIONS.items()
+                            if n != self._lin0.get(k, 0)}
+        self.lin = self.lin_by_kind.get("local_ba", 0)
+        self.chain_calls = {k: n - self._by_size0.get(k, 0)
+                            for k, n in interp_chain.BY_SIZE.items()
+                            if n != self._by_size0.get(k, 0)}
+        now = graphs.counts()
+        self.graphs = {k: now[k] - self._graphs0[k] for k in ("captures", "replays",
+                                                              "eager_steps")}
 
 
 def run_system(frames, rig, device, dtype, threaded=False, loop_closing=False):
@@ -1055,6 +1254,7 @@ def run_system(frames, rig, device, dtype, threaded=False, loop_closing=False):
     on_card = torch.device(device).type == "cuda"
     map_store._ids = itertools.count(ID_START)
     extraction.reset_bucket_high_water()
+    graphs.clear()  # the run captures its own graphs, as a fresh process does
     sys_ = System(copy.deepcopy(rig), tracking.TrackingConfig(**SYSTEM_CFG),
                   enable_loop_closing=loop_closing, threaded=threaded, device=device,
                   dtype=dtype)
@@ -1121,7 +1321,7 @@ def system_sequential(frames, rig, Ts, device):
     GLOBAL_TIMER.samples.clear()
     torch.cuda.reset_peak_memory_stats()
     sync()
-    interp_chain.LAUNCHES = 0
+    interp_chain.reset_launches()
     t0 = time.perf_counter()
     with SystemProbe() as probe:
         sys_, rec = run_system(frames, rig, device, torch.float32)
@@ -1147,9 +1347,10 @@ def system_sequential(frames, rig, Ts, device):
                                           "n": len(track_ms[False])}},
         "frame_ms_median_incl_mapping": pct([r["ms"] for r in rec[1:]], 50),
         "local_ba_ms_per_kf": {"median": pct(lba_ms, 50), "n": len(lba_ms)},
-        "local_ba_linearizations": probe.lin, "largest_local_ba": probe.lba,
+        "local_ba_linearizations": probe.lin, "linearizations_by_kind": probe.lin_by_kind,
+        "largest_local_ba": probe.lba,
         "largest_pose_problem": probe.pose, "chain_kernel_launches": launches,
-        "chain_calls_by_size": probe.chain_calls,
+        "chain_calls_by_size": probe.chain_calls, "graphs": probe.graphs,
         "peak_mem_bytes": torch.cuda.max_memory_allocated(), "seconds": seconds,
         "spans_median_ms": {k: v["median_ms"] for k, v in GLOBAL_TIMER.stats().items()},
     }
@@ -1236,7 +1437,7 @@ def phase_system(device, smi):
     emit("system_summary", seconds=time.perf_counter() - t_phase, card=smi,
          tracking_ms=out["tracking_ms"], local_ba_ms_per_kf=out["local_ba_ms_per_kf"],
          chain_kernel_launches=launches, chain_calls_by_size=out["chain_calls_by_size"],
-         peak_mem_bytes=out["peak_mem_bytes"])
+         graphs=out["graphs"], peak_mem_bytes=out["peak_mem_bytes"])
     return launches, probe
 
 
@@ -1327,7 +1528,7 @@ def loop_live(device):
     GLOBAL_TIMER.samples.clear()
     torch.cuda.reset_peak_memory_stats()
     sync()
-    interp_chain.LAUNCHES = 0
+    interp_chain.reset_launches()
     t0 = time.perf_counter()
     with SystemProbe() as probe, Timed(closer) as tc:
         sys_, rec = run_system(frames, rig, device, torch.float32, loop_closing=True)
@@ -1351,7 +1552,9 @@ def loop_live(device):
            "detect_common_regions_ms": {"median": pct(detect_ms, 50), "p90": pct(detect_ms, 90),
                                         "max": max(detect_ms, default=None)},
            "tracking_ms_median": pct([r["ms"] - r["mapping_ms"] for r in rec[1:]], 50),
+           "tracking_ms_p90": pct([r["ms"] - r["mapping_ms"] for r in rec[1:]], 90),
            "run_chain_launches": launches, "run_chain_calls_by_size": probe.chain_calls,
+           "run_graphs": probe.graphs, "run_peak_mem_bytes": torch.cuda.max_memory_allocated(),
            "run_seconds": run_s, "reference_cpu": REFERENCE_11A}
     if states.count("OK") != len(states):
         raise AssertionError(f"11a: not every frame OK: {states}")
@@ -1368,7 +1571,7 @@ def loop_live(device):
     applied0 = lc.n_gba_applied
     torch.cuda.reset_peak_memory_stats()
     sync()
-    interp_chain.LAUNCHES = 0
+    interp_chain.reset_launches()
     with SystemProbe() as gprobe, Timed(gba) as tg:
         lc._run_global_ba()
     sync()
@@ -1379,7 +1582,8 @@ def loop_live(device):
     ate_ba = trajectory_ate(sys_, frames, Ts)
     out["global_ba"] = {
         "applied": lc.n_gba_applied - applied0, "chi2_initial": float(stats.initial_chi2),
-        "chi2": chi2, "iterations": stats.iterations, "linearizations": gprobe.lin,
+        "chi2": chi2, "iterations": stats.iterations,
+        "linearizations": gprobe.lin_by_kind.get("lm", 0),
         "chain_kernel_launches": g_launches, "chain_calls_by_size": gprobe.chain_calls,
         "ms": {k: tg.total(k) for k in gba},
         "sizes": {"real": {"K": len(h["kfs"]), "Em": len(h["mg_refs"]), "Es": len(h["st_refs"]),
@@ -1395,8 +1599,9 @@ def loop_live(device):
     emit("loop_live", **out)
     if lc.n_gba_applied != applied0 + 1 or not np.isfinite(chi2):
         raise AssertionError(f"11a: global BA applied {lc.n_gba_applied - applied0}x, chi2 {chi2}")
-    if g_launches < gprobe.lin or g_launches != sum(gprobe.chain_calls.values()):
-        raise AssertionError(f"11a: {g_launches} chain launches for {gprobe.lin} global-BA "
+    g_lin = gprobe.lin_by_kind.get("lm", 0)
+    if g_launches < g_lin or g_launches != sum(gprobe.chain_calls.values()):
+        raise AssertionError(f"11a: {g_launches} chain launches for {g_lin} global-BA "
                              f"linearizations, {gprobe.chain_calls} entry calls")
     if not ate_ba <= LOOP_ATE_PCT / 100 * path_m:
         raise AssertionError(f"11a: ATE after the global BA {ate_ba:.4f} m > {LOOP_ATE_PCT} % "
@@ -1716,9 +1921,9 @@ E2E_LOOP_ATE_PCT = 1.0
 E2E_LOOP_OK_FROM = 30         # OK over frames 30-65 (the reference's states[30:66])
 E2E_LOST_WITHIN = (67, 80)    # RECENTLY_LOST somewhere in states[67:80]
 E2E_RECOVERY_FROM = 72        # the first OK frame from 72 on is the recovery frame
-# the opt-in scenarios (`--scenarios`) at the reference's full sizes:
-# tests/test_e2e_scenarios.py:38-60 (the figure-eight) and :157-200 (the
-# threaded pin, sequential then threaded)
+# at the reference's full sizes: tests/test_e2e_scenarios.py:38-60 (the
+# figure-eight, opt-in with `--scenarios`) and :157-200 (the threaded pin,
+# sequential then threaded: phase 17)
 E2E_EIGHT = dict(n_frames=160, fps=5.0, seed=0, eight=True, circle_period=14.0,
                  circle_radius=4.5, n_features=500)
 E2E_EIGHT_ATE_PCT = 0.5
@@ -1851,9 +2056,11 @@ def e2e_run(device, kw, timed=None, **extra) -> dict:
     frames at which the loop closer's count rose, and the System and the
     run's `collect` under "_system" and "_collect"."""
     GLOBAL_TIMER.samples.clear()
+    graphs.clear()  # the run captures its own graphs, as a fresh process does
     torch.cuda.reset_peak_memory_stats()
     sync()
     loops = []
+    graphs0 = graphs.counts()
 
     class Counted(e2e.System):
         def track_multicamera(self, frame):
@@ -1861,7 +2068,7 @@ def e2e_run(device, kw, timed=None, **extra) -> dict:
             loops.append(self.loop_closer.loops_closed if self.loop_closer else 0)
             return state
 
-    interp_chain.LAUNCHES = 0
+    interp_chain.reset_launches()
     collect = {}
     t0 = time.perf_counter()
     with (timed or contextlib.nullcontext()), mock.patch.object(e2e, "System", Counted):
@@ -1885,6 +2092,8 @@ def e2e_run(device, kw, timed=None, **extra) -> dict:
             "track_ms_p90_incl_mapping": pct(t["track_ms"][1:], 90),
             "local_ba_ms_per_kf": {"median": pct(lba_ms, 50), "n": len(lba_ms)},
             "chain_kernel_launches": interp_chain.LAUNCHES,
+            "graphs": {k: graphs.counts()[k] - graphs0[k]
+                       for k in ("captures", "replays", "eager_steps")},
             "peak_mem_bytes": torch.cuda.max_memory_allocated(),
             "seconds": time.perf_counter() - t0, "_system": sys_, "_collect": collect}
 
@@ -2069,6 +2278,7 @@ def scenario_threaded(device) -> int:
                                     threaded=threaded), timed)
         lat = r.pop("_collect")["timing"]["track_ms"][E2E_THREADED_SKIP:]
         r["track_ms_median_from_frame_10"] = pct(lat, 50)
+        r["track_ms_p90_from_frame_10"] = pct(lat, 90)
         launches += r["chain_kernel_launches"]
         runs["threaded" if threaded else "sequential"] = r
     seq, thr = runs["sequential"], runs["threaded"]
@@ -2088,19 +2298,22 @@ def scenario_threaded(device) -> int:
 
 
 def phase_scenarios(device, smi) -> int:
-    """The opt-in scenarios (`--scenarios`), each run to its end; then
-    raises if any check failed. Returns the chain's launches."""
+    """The opt-in scenario (`--scenarios`): the figure-eight, run to its
+    end; then raises if a check failed. Returns the chain's launches."""
     t_phase = time.perf_counter()
-    launches, failed = 0, []
-    for scenario in (scenario_eight, scenario_threaded):
-        try:
-            launches += scenario(device)
-        except AssertionError as exc:
-            failed.append(str(exc))
+    launches = scenario_eight(device)
     emit("scenarios_summary", seconds=time.perf_counter() - t_phase, card=smi,
-         chain_kernel_launches=launches, failed=failed)
-    if failed:
-        raise AssertionError(f"opt-in scenarios: {failed}")
+         chain_kernel_launches=launches)
+    return launches
+
+
+def phase_threaded_pin(device, smi) -> int:
+    """17: the threaded pin (`scenario_threaded`) at its full 40 frames.
+    Returns the chain's launches."""
+    t_phase = time.perf_counter()
+    launches = scenario_threaded(device)
+    emit("threaded_pin_summary", seconds=time.perf_counter() - t_phase, card=smi,
+         chain_kernel_launches=launches)
     return launches
 
 
@@ -2247,7 +2460,7 @@ def solver_fallback(device) -> dict:
         data, state = convert.ba_from_numpy(np_data, np_state, device=device, dtype=dtype)
         bare = data._replace(**NO_TABLES)
         for path, d in (("tables", data), ("fallback", bare)):
-            interp_chain.LAUNCHES = 0
+            interp_chain.reset_launches()
             outs[path, dtype], p = ba_outputs(d, state, 1.0)
             launches += interp_chain.LAUNCHES
             ms[f"{path}_{str(dtype)[6:]}"] = time_calls(lambda: p.linearize(state),
@@ -2310,7 +2523,7 @@ def pcg_dense(device) -> dict:
     cpu = threading.Thread(target=run_pcg, args=("cpu", stats))
     cpu.start()
     try:
-        interp_chain.LAUNCHES = 0
+        interp_chain.reset_launches()
         sync()
         t1 = time.perf_counter()
         run_pcg(device, stats)
@@ -2712,7 +2925,7 @@ def phase_multidevice(device, smi) -> int:
     s5a = convert.sim3_field_from(st5a, device=device, dtype=torch.float64)
     out5a, stats5a, single5a_s = timed_lm(sim3_opt.make_essential_graph_problem_pcg(d5a), s5a,
                                           EG_5A_ITERS, 1e-16)
-    interp_chain.LAUNCHES = 0
+    interp_chain.reset_launches()
 
     def spawn():
         t0, wall0 = time.perf_counter(), time.time()
@@ -2979,8 +3192,8 @@ def phase_sizes(size_inputs: dict) -> dict:
 def main(argv=None) -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--scenarios", action="store_true",
-                    help="after the default phases, run the opt-in scenarios: the "
-                         "figure-eight (160 frames) and the threaded pin (2 x 40 frames)")
+                    help="after the default phases, run the opt-in scenario: the "
+                         "figure-eight (160 frames)")
     args = ap.parse_args(argv)
     # 1. device
     if not torch.cuda.is_available():
@@ -3018,6 +3231,8 @@ def main(argv=None) -> None:
     t_launches, t_ms, t_per, prof_args = phase_tracking(device)
     emit("tracking_summary", ms=t_ms, per_solve=t_per, card=smi)
     profile_tracking(*prof_args, _build.BUILD_DIR.parent / "profile")
+    # 16. the solves as graph replays against the eager path
+    phase_graphs(device, smi, np_data, np_state)
     # 9. the System entry point
     s_launches, probe = phase_system(device, smi)
     # 11. loop closing
@@ -3030,17 +3245,17 @@ def main(argv=None) -> None:
     m_launches = phase_multidevice(device, smi)
     # 15. the device ORB's stage profile
     phase_orb_profile(device, smi)
+    # 17. the threaded pin
+    p_launches = phase_threaded_pin(device, smi)
 
     # 10. the chain at the System's sizes
-    _, d9, s9, sid9, it_sid9, it_t9 = probe.lba_combos
-    _, d11, s11, sid11, it_sid11, it_t11 = gba_combos
+    _, inputs9, it_sid9 = probe.lba_combos
+    _, inputs11, it_sid11 = gba_combos
     headline = indexed_inputs(data, state0, data.mg_sid_cols, data.mg_it_sid, data.mg_it_t)
     sizes = phase_sizes({
         "pose_pair": ("pair", probe.chain_args["pair"][1], None),
-        "local_ba_live_U": ("indexed", indexed_inputs(d9, s9, sid9, it_sid9, it_t9),
-                            it_sid9 != 0),
-        "global_ba_live_U": ("indexed", indexed_inputs(d11, s11, sid11, it_sid11, it_t11),
-                             it_sid11 != 0),
+        "local_ba_live_U": ("indexed", inputs9, it_sid9 != 0),
+        "global_ba_live_U": ("indexed", inputs11, it_sid11 != 0),
         "headline_1024": ("indexed", headline, data.mg_it_sid != 0),
         "headline_1024_f64": ("indexed", tuple(a.double() if a.is_floating_point() else a
                                                for a in headline), data.mg_it_sid != 0),
@@ -3059,7 +3274,7 @@ def main(argv=None) -> None:
         "source": "amcslam_tpu_torch/csrc/interp_chain.cu",
         "replaces": "amcslam_tpu/ops/pallas_chain.py:296",
         "launches": (launches + t_launches + s_launches + l_launches + f_launches + v_launches
-                     + m_launches + x_launches),
+                     + m_launches + p_launches + x_launches),
         "max_abs_err": max_abs_err,
         "ms": chain_ms["kernel"],
         "plain_ms": chain_ms["plain"],
