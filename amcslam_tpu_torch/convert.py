@@ -36,6 +36,7 @@ from .solver.ba import BAState, LocalBAData
 from .solver.pose_solver import PoseGPData, PoseState
 from .solver.sim3_opt import EssentialGraphData, Sim3Field, Sim3PairData
 from .solver.vi_ba import VIBAData, VIBAState
+from .utils.timing import GLOBAL_TIMER
 
 
 def _tensor(a, device, dtype) -> torch.Tensor:
@@ -257,7 +258,8 @@ def fetch(*tensors, dtype) -> list[np.ndarray]:
     """Host copies of device tensors in one device-to-host read, all in
     `dtype` (bool masks come back as 0/1; integer counts exactly while they
     fit the dtype's mantissa)."""
-    flat = torch.cat([t.reshape(-1).to(dtype) for t in tensors]).cpu().numpy()
+    with GLOBAL_TIMER.span("host.read"):
+        flat = torch.cat([t.reshape(-1).to(dtype) for t in tensors]).cpu().numpy()
     out, o = [], 0
     for t in tensors:
         out.append(flat[o:o + t.numel()].reshape(tuple(t.shape)))

@@ -6,12 +6,14 @@ zero-padded image names (System::LoadAmvImages) and the PNGs with the port's
 own reader (utils/io.read_png_gray), replays the sequence with real-time
 pacing on the port's System, prints the median and mean tracking time
 (multicam_amv.cc:120-128) and saves the TUM trajectories named by sequence
-index.
+index. `--trace-out PATH` writes the run's stage spans as Chrome trace-event
+JSON (chrome://tracing or Perfetto): the timeline of the tracker's stages,
+and in threaded mode the mapper's beside them.
 
 Usage:
     python -m amcslam_tpu_torch.examples.multicam_amv <config.yaml> [--seq N]
         [--out DIR] [--no-realtime] [--max-frames N] [--device cuda|cpu]
-        [--backend host|device]
+        [--backend host|device] [--trace-out PATH]
 
 The System runs on `--device` (default cuda: without a card it raises;
 `--device cpu` asks for the host).
@@ -44,6 +46,8 @@ def main(argv=None):
                     help="device of the System and the device ORB (default cuda)")
     ap.add_argument("--backend", choices=("host", "device"), default=None,
                     help="ORB backend (default: AMCSLAM_ORB_BACKEND, else host)")
+    ap.add_argument("--trace-out", default=None,
+                    help="write the stage spans to this path as Chrome trace-event JSON")
     args = ap.parse_args(argv)
     device = resolve_device(args.device)
 
@@ -88,6 +92,9 @@ def main(argv=None):
     slam.save_keyframe_trajectory_tum(kf_out)
     print(f"saved {out}, {kf_out}")
     slam.shutdown()
+    if args.trace_out:
+        n = GLOBAL_TIMER.write_trace(args.trace_out)
+        print(f"wrote {n} spans to {args.trace_out}")
 
 
 if __name__ == "__main__":

@@ -29,6 +29,7 @@ import numpy as np
 import torch
 
 from .. import native
+from ..utils.timing import GLOBAL_TIMER
 
 TH_LOW = 50
 TH_HIGH = 100
@@ -64,7 +65,8 @@ def match_reduce(d1: np.ndarray, d2: np.ndarray, device=None):
     second_d = D2.min(dim=1).values
     col_best = D.argmin(dim=0)
     n = D.shape[0]
-    out = torch.cat([best_j, best_d.long(), second_d.long(), col_best]).cpu().numpy()
+    with GLOBAL_TIMER.span("host.read"):
+        out = torch.cat([best_j, best_d.long(), second_d.long(), col_best]).cpu().numpy()
     return out[:n], out[n:2 * n].astype(np.int32), out[2 * n:3 * n].astype(np.int32), out[3 * n:]
 
 
@@ -77,7 +79,9 @@ def hamming(d1: np.ndarray, d2: np.ndarray, device=None) -> np.ndarray:
         return np.zeros((n, m), np.int32)
     if native.available() and n * m <= _NATIVE_TABLE_MAX:
         return native.hamming_matrix(d1, d2)
-    return hamming_table(d1, d2, device).cpu().numpy()
+    table = hamming_table(d1, d2, device)
+    with GLOBAL_TIMER.span("host.read"):
+        return table.cpu().numpy()
 
 
 def rotation_consistency(idx: np.ndarray, ang1: np.ndarray, ang2: np.ndarray,

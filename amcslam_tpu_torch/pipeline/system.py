@@ -24,6 +24,7 @@ import threading
 import numpy as np
 import torch
 
+from ..utils.timing import GLOBAL_TIMER
 from .extraction import preset_shape_buckets
 from .keyframe_database import KeyFrameDatabase
 from .local_mapping import LocalMapping
@@ -87,16 +88,17 @@ class System:
         Threaded mode serializes tracking against the background mapper
         through the active map's `mutex` (the reference's mMutexMapUpdate,
         Map.h / Tracking.cc:1096)."""
-        self._raise_worker_error()
-        with self.atlas.active.mutex:
-            state = self.tracker.grab_frame(frame)
-        if not self.threaded:
-            while self.local_mapper.run_once():
-                pass
-            if self.loop_closer is not None:
-                while self.loop_closer.run_once():
+        with GLOBAL_TIMER.span("sys.frame"):
+            self._raise_worker_error()
+            with self.atlas.active.mutex:
+                state = self.tracker.grab_frame(frame)
+            if not self.threaded:
+                while self.local_mapper.run_once():
                     pass
-        return state
+                if self.loop_closer is not None:
+                    while self.loop_closer.run_once():
+                        pass
+            return state
 
     def _background(self):
         import time

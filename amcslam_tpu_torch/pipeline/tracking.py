@@ -584,6 +584,28 @@ class Tracking:
         return n
 
     def _mc_ransac(self, frame: Frame):
+        with GLOBAL_TIMER.span("tlm.ransac_extract"):
+            problem = self._ransac_problem(frame)
+        if problem is None:
+            return
+        data, samples, idxs = problem
+        with GLOBAL_TIMER.span("tlm.ransac_solve"):
+            ok, v_best, inl, n_in = mc_ransac(
+                data, samples,
+                threshold=self.cfg.ransac_threshold,
+                min_match=self.cfg.ransac_min_match,
+            )
+            ok, inl = _fetch(ok, inl)  # one device-to-host read
+        with GLOBAL_TIMER.span("tlm.ransac_apply"):
+            if bool(ok):
+                for j, g in enumerate(idxs):
+                    if not inl[j]:
+                        frame.outlier[g] = True
+
+    def _ransac_problem(self, frame: Frame):
+        """MC-RANSAC's rows of the frame's map-point matches, padded to a
+        pow2 bucket, and its hypothesis samples, on the device; None with
+        too few matches."""
         m = self.atlas.active
         idxs, rows = [], []
         for g, mp_id in enumerate(frame.matches):
@@ -599,7 +621,7 @@ class Tracking:
             rows.append((*mp.position, dtc, cam, uv[0], uv[1], w))
             idxs.append(g)
         if len(rows) < self.cfg.ransac_min_match:
-            return
+            return None
         A = np.array(rows)
         n = len(rows)
         # pow2-bucket the row count, as the reference does (fixed shapes)
@@ -631,16 +653,7 @@ class Tracking:
             self._rng.choice(n, 3, replace=False)
             for _ in range(self.cfg.ransac_max_it)
         ])
-        ok, v_best, inl, n_in = mc_ransac(
-            data, torch.as_tensor(samples, device=self.device),
-            threshold=self.cfg.ransac_threshold,
-            min_match=self.cfg.ransac_min_match,
-        )
-        ok, inl = _fetch(ok, inl)  # one device-to-host read
-        if bool(ok):
-            for j, g in enumerate(idxs):
-                if not inl[j]:
-                    frame.outlier[g] = True
+        return data, torch.as_tensor(samples, device=self.device), idxs
 
     def _pose_solve(self, frame: Frame) -> int:
         """Per-frame GP pose optimization + outlier write-back."""
@@ -648,29 +661,30 @@ class Tracking:
         # the reference frees the previous frame's vertex in every per-frame
         # pose solve (fix=false at Tracking.cc:1863/1912/2036) and discards
         # its refinement — only the current frame is written back
-        data, state, handles = extract_pose_problem(
-            frame, self.last_frame, m.map_points, self.rig, fix_prev=False,
-            device=self.device, dtype=self.dtype,
-        )
-        out_m = np.zeros(handles["Nm"], bool)
-        out_s = np.zeros(handles["Ns"], bool)
-        out_m[: handles["n_mg"]] = frame.outlier[handles["mg_idx"]] if handles["n_mg"] else False
-        out_s[: handles["n_st"]] = frame.outlier[handles["st_idx"]] if handles["n_st"] else False
-        state, lvl_m, lvl_s, (stats, n_inl) = pose_gp_optimize(
-            data, state, torch.as_tensor(out_m, device=self.device),
-            torch.as_tensor(out_s, device=self.device),
-        )
-        # the write-back is one device-to-host read
-        T1, v1, lvl_m, lvl_s = _fetch(state.T[1], state.v[1], lvl_m, lvl_s)
-        lvl_m, lvl_s = lvl_m.astype(bool), lvl_s.astype(bool)
-        frame.Twb = T1
-        frame.velocity = v1
-        if handles["n_mg"]:
-            frame.outlier[handles["mg_idx"]] = ~lvl_m[: handles["n_mg"]]
-        if handles["n_st"]:
-            frame.outlier[handles["st_idx"]] = ~lvl_s[: handles["n_st"]]
-        n = int(lvl_m[: handles["n_mg"]].sum() + lvl_s[: handles["n_st"]].sum())
-        return n
+        with GLOBAL_TIMER.span("tlm.pose_extract"):
+            data, state, handles = extract_pose_problem(
+                frame, self.last_frame, m.map_points, self.rig, fix_prev=False,
+                device=self.device, dtype=self.dtype,
+            )
+            out_m = np.zeros(handles["Nm"], bool)
+            out_s = np.zeros(handles["Ns"], bool)
+            out_m[: handles["n_mg"]] = frame.outlier[handles["mg_idx"]] if handles["n_mg"] else False
+            out_s[: handles["n_st"]] = frame.outlier[handles["st_idx"]] if handles["n_st"] else False
+            out_m = torch.as_tensor(out_m, device=self.device)
+            out_s = torch.as_tensor(out_s, device=self.device)
+        with GLOBAL_TIMER.span("tlm.pose_lm"):
+            state, lvl_m, lvl_s, (stats, n_inl) = pose_gp_optimize(data, state, out_m, out_s)
+            # the write-back is one device-to-host read
+            T1, v1, lvl_m, lvl_s = _fetch(state.T[1], state.v[1], lvl_m, lvl_s)
+        with GLOBAL_TIMER.span("tlm.pose_apply"):
+            lvl_m, lvl_s = lvl_m.astype(bool), lvl_s.astype(bool)
+            frame.Twb = T1
+            frame.velocity = v1
+            if handles["n_mg"]:
+                frame.outlier[handles["mg_idx"]] = ~lvl_m[: handles["n_mg"]]
+            if handles["n_st"]:
+                frame.outlier[handles["st_idx"]] = ~lvl_s[: handles["n_st"]]
+            return int(lvl_m[: handles["n_mg"]].sum() + lvl_s[: handles["n_st"]].sum())
 
     # ------------------------------------------------------------------
     def _need_new_keyframe(self, frame: Frame) -> bool:

@@ -42,6 +42,7 @@ from typing import Any, Callable
 import torch
 
 from ..ops import interp_chain
+from ..utils.timing import GLOBAL_TIMER
 
 MAX_ENTRIES = 3  # per kind and thread
 
@@ -157,10 +158,15 @@ class Program:
     the current stream into a graph of the program's pool; every call from
     then on replays it. A capture records no work, so the capturing call
     replays the graph once to do its step. The chain kernel's launches
-    inside a capture are held by the graph and counted at every replay."""
+    inside a capture are held by the graph and counted at every replay.
 
-    def __init__(self, graphed: bool):
+    The warm-up and capture calls are spanned (`graph.warm`,
+    `graph.capture`; `graph.recapture` for a program whose entry the
+    thread had dropped before, see `entry`); the replays are not."""
+
+    def __init__(self, graphed: bool, recapture: bool = False):
         self.graphed = graphed
+        self.recapture = recapture
         self.pool = _new_pool() if graphed else None
         self.steps: dict[str, Any] = {}  # name -> None (warm) or (graph, chain launches)
 
@@ -170,7 +176,8 @@ class Program:
             _bump(eager=1)
             return
         if name not in self.steps:
-            fn()
+            with GLOBAL_TIMER.span("graph.warm"):
+                fn()
             self.steps[name] = None
             _bump(eager=1)
             return
@@ -183,7 +190,8 @@ class Program:
         _bump(replays=1)
 
     def _capture(self, fn):
-        with interp_chain.recording() as chain:
+        span = "graph.recapture" if self.recapture else "graph.capture"
+        with GLOBAL_TIMER.span(span), interp_chain.recording() as chain:
             graph = _capture_graph(fn, self.pool)
         _bump(captures=1)
         return graph, dict(chain)
@@ -215,6 +223,7 @@ def _capture_graph(fn, pool) -> torch.cuda.CUDAGraph:
 class _Local(threading.local):
     def __init__(self):
         self.entries: OrderedDict = OrderedDict()
+        self.dropped: set = set()  # keys of the entries dropped past MAX_ENTRIES
         self.streams: dict = {}
 
 
@@ -226,8 +235,10 @@ def _local() -> _Local:
 
 
 def clear() -> None:
-    """Drop the calling thread's cached entries (their graphs and buffers)."""
+    """Drop the calling thread's cached entries (their graphs and buffers),
+    and forget which entries it had dropped."""
     _local().entries.clear()
+    _local().dropped.clear()
 
 
 def _stream(device) -> torch.cuda.Stream:
@@ -243,17 +254,21 @@ def entry(kind: str, key: tuple, make: Callable[[Program], Any], device, eager: 
     `make(program)` on first use, the least recently used entry of the
     kind dropped past MAX_ENTRIES), made anew for an eager run. The key
     takes in whether deterministic algorithms are on: a graph keeps the
-    kernels it was captured with (index_add_ with atomics or sorted)."""
+    kernels it was captured with (index_add_ with atomics or sorted). The
+    thread remembers the keys it dropped: an entry made again for one of
+    them spans its captures as `graph.recapture`."""
     if not graphed(device, eager):
         return make(Program(False))
-    entries = _local().entries
+    loc = _local()
+    entries = loc.entries
     full = (kind, key, torch.are_deterministic_algorithms_enabled())
     e = entries.get(full)
     if e is None:
         same = [k for k in entries if k[0] == kind]
         for k in same[: max(0, len(same) - MAX_ENTRIES + 1)]:
             del entries[k]
-        e = entries[full] = make(Program(True))
+            loc.dropped.add(k)
+        e = entries[full] = make(Program(True, recapture=full in loc.dropped))
     entries.move_to_end(full)
     return e
 

@@ -54,6 +54,7 @@ from typing import Any, Callable, NamedTuple
 
 import torch
 
+from ..utils.timing import GLOBAL_TIMER
 from . import graphs
 
 # Linearizations run, by the kind of solve (eager or replayed): a replayed
@@ -65,7 +66,8 @@ _COUNT_LOCK = threading.Lock()
 def _read(t: torch.Tensor) -> list:
     """The LM loop's one host read per trial (a device sync on CUDA; the
     copy releases the GIL while it waits, so a second solving thread goes on)."""
-    return t.tolist()
+    with GLOBAL_TIMER.span("host.read"):
+        return t.tolist()
 
 
 class LMProblem(NamedTuple):

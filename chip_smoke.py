@@ -767,14 +767,18 @@ def tracking_frame():
 
 
 class Counts:
-    """Host reads of the LM loops (through the solvers' own seam), pose-solve
+    """Host reads of the LM loops (the program's `host.read` spans), pose-solve
     linearizations (`tlm.LINEARIZATIONS`), graph replays, captures and steps
     run as plain calls (solver/graphs.py), since the `with` block began."""
 
     def __init__(self):
-        self.reads = 0
+        self._reads0 = 0
         self._lin0 = 0
         self._graphs0 = {}
+
+    @property
+    def reads(self) -> int:
+        return len(GLOBAL_TIMER.samples.get("host.read", ())) - self._reads0
 
     @property
     def lin(self) -> int:
@@ -785,20 +789,13 @@ class Counts:
         return {k: now[k] - self._graphs0[k] for k in ("replays", "captures", "eager_steps")}
 
     def __enter__(self):
-        read = tlm._read
-
-        def counting_read(t):
-            self.reads += 1
-            return read(t)
-
+        self._reads0 = len(GLOBAL_TIMER.samples.get("host.read", ()))
         self._lin0 = tlm.LINEARIZATIONS["pose"]
         self._graphs0 = graphs.counts()
-        self._patch = mock.patch.object(tlm, "_read", counting_read)
-        self._patch.start()
         return self
 
     def __exit__(self, *exc):
-        self._patch.stop()
+        return False
 
 
 def pose_flags(ok, inl, n_m, n_s):
@@ -1318,7 +1315,7 @@ def system_sequential(frames, rig, Ts, device):
     record, the probe)."""
     frames, Ts = frames[:SYSTEM_FRAMES], Ts[:SYSTEM_FRAMES]
     path_m = float(np.linalg.norm(np.diff(Ts[:, :3, 3], axis=0), axis=1).sum())
-    GLOBAL_TIMER.samples.clear()
+    GLOBAL_TIMER.clear()
     torch.cuda.reset_peak_memory_stats()
     sync()
     interp_chain.reset_launches()
@@ -1525,7 +1522,7 @@ def loop_live(device):
     path_m = float(np.linalg.norm(np.diff(Ts[:, :3, 3], axis=0), axis=1).sum())
     closer = {"detect_common_regions": (LoopClosing, "detect_common_regions"),
               "try_pair": (LoopClosing, "_try_pair")}
-    GLOBAL_TIMER.samples.clear()
+    GLOBAL_TIMER.clear()
     torch.cuda.reset_peak_memory_stats()
     sync()
     interp_chain.reset_launches()
@@ -2055,7 +2052,7 @@ def e2e_run(device, kw, timed=None, **extra) -> dict:
     before it; returns its results, per-frame timings and counts, the
     frames at which the loop closer's count rose, and the System and the
     run's `collect` under "_system" and "_collect"."""
-    GLOBAL_TIMER.samples.clear()
+    GLOBAL_TIMER.clear()
     graphs.clear()  # the run captures its own graphs, as a fresh process does
     torch.cuda.reset_peak_memory_stats()
     sync()

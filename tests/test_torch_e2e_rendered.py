@@ -260,8 +260,17 @@ def test_amv_cli_replays_on_the_cpu(tmp_path):
     env = dict(os.environ, PYTHONPATH=str(REPO) + os.pathsep + os.environ.get("PYTHONPATH", ""))
     proc = subprocess.run(
         [sys.executable, "-m", "amcslam_tpu_torch.examples.multicam_amv", str(yaml_path),
-         "--no-realtime", "--device", "cpu", "--out", str(tmp_path)],
+         "--no-realtime", "--device", "cpu", "--out", str(tmp_path),
+         "--trace-out", str(tmp_path / "trace.json")],
         env=env, cwd=tmp_path, capture_output=True, text=True, timeout=600)
     assert proc.returncode == 0, proc.stdout + proc.stderr
     assert "median tracking time" in proc.stdout and "6 ticks, 3 cameras" in proc.stdout
     check_tum(tmp_path)
+    # the stage timeline: every tracked frame's spans under its `sys.frame`
+    events = [e for e in json.loads((tmp_path / "trace.json").read_text())["traceEvents"]
+              if e["ph"] == "X"]
+    roots = {e["args"]["root"] for e in events if e["name"] == "sys.frame"}
+    assert len(roots) == 6
+    tracked = [e for e in events if e["name"].startswith(("track.", "tlm."))]
+    assert {e["name"] for e in tracked} >= {"track.local_map", "tlm.pose_lm"}
+    assert {e["args"]["root"] for e in tracked} <= roots
