@@ -28,7 +28,7 @@ from ..solver.ba import BAState, local_gp_ba, local_gp_ba_interruptible
 from ..utils.timing import GLOBAL_TIMER
 from . import matcher
 from .extraction import apply_local_ba, extract_local_ba
-from .map_store import KeyFrame, Map, MapPoint
+from .map_store import KeyFrame, Map, MapPoint, update_normals_and_depths
 from .rig import Rig
 from .tracking import resolve_device
 
@@ -389,8 +389,7 @@ class LocalMapping:
             & (ratio_dist < ratio_oct * ratio_factor)
         )
 
-        created = 0
-        centers = {}  # no pose changes while points are created
+        created = []
         for n in np.nonzero(accept)[0]:
             c1, g1, nb, c2, g2 = tri_meta[n]
             if kf.matches[g1] >= 0 or nb.matches[g2] >= 0:
@@ -403,12 +402,12 @@ class LocalMapping:
             kf.matches[g1] = mp.id
             nb.matches[g2] = mp.id
             self.map.add_map_point(mp)
-            mp.update_normal_and_depth(
-                self.map.keyframes, self.rig.Tbc, sf, self.rig.n_levels, centers
-            )
             self.recent_points.append(mp)
-            created += 1
-        return created
+            created.append(mp)
+        # nothing above reads a viewing geometry: refresh the new points once
+        update_normals_and_depths(created, self.map.keyframes, self.rig.Tbc, sf,
+                                  self.rig.n_levels)
+        return len(created)
 
     # ------------------------------------------------------------------
     def fuse_neighbors(self, kf: KeyFrame):
@@ -431,7 +430,7 @@ class LocalMapping:
             mp.descriptor if mp.descriptor is not None else np.zeros(32, np.uint8)
             for mp in mps
         ])
-        centers = {}  # no pose changes while points fuse
+        touched = {}  # points that gained observations: refreshed once, below
         for nb in neighbors:
             # project through EVERY camera at its own (GP-interpolated) pose
             # (ORBmatcher::Fuse loops cameras, ORBmatcher.cc:1133ff)
@@ -455,10 +454,7 @@ class LocalMapping:
                     if other_id < 0:
                         nb.matches[g] = mp.id
                         mp.add_observation(nb, cam, g)
-                        mp.update_normal_and_depth(
-                            self.map.keyframes, self.rig.Tbc,
-                            self.rig.scale_factor, self.rig.n_levels, centers,
-                        )
+                        touched[mp.id] = mp
                     elif other_id != mp.id and int(other_id) in self.map.map_points:
                         other = self.map.map_points[int(other_id)]
                         # keep the better-observed one (ORBmatcher::Fuse)
@@ -472,10 +468,12 @@ class LocalMapping:
                                     okf.matches[gi] = winner.id
                                     winner.add_observation(okf, c, int(gi))
                         self.map.erase_map_point(loser)
-                        winner.update_normal_and_depth(
-                            self.map.keyframes, self.rig.Tbc,
-                            self.rig.scale_factor, self.rig.n_levels, centers,
-                        )
+                        touched[winner.id] = winner
+        # no pose changes and nothing reads a viewing geometry while points
+        # fuse, so one refresh after the loop leaves what one after every
+        # added observation would (losers are bad by now, and skipped)
+        update_normals_and_depths(touched.values(), self.map.keyframes, self.rig.Tbc,
+                                  self.rig.scale_factor, self.rig.n_levels)
 
     # ------------------------------------------------------------------
     def local_ba(self, kf: KeyFrame, lock=None):
@@ -552,13 +550,8 @@ class LocalMapping:
                 if erase_sg[n]:
                     _, kf_id, obs, mp = meta
                     mp.erase_gp_observation(kf_id, obs)
-            # refresh viewing geometry of moved landmarks
+            # refresh viewing geometry of moved landmarks (bad ones skipped)
             # (pMP->UpdateNormalAndDepth after SetWorldPos, Optimizer.cc:1415)
-            centers = {}  # the poses were written back above
-            for mp in handles["lms"]:
-                if not mp.bad:
-                    mp.update_normal_and_depth(
-                        self.map.keyframes, self.rig.Tbc,
-                        self.rig.scale_factor, self.rig.n_levels, centers,
-                    )
+            update_normals_and_depths(handles["lms"], self.map.keyframes, self.rig.Tbc,
+                                      self.rig.scale_factor, self.rig.n_levels)
             self.map.increase_change_index()

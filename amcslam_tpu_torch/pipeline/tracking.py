@@ -38,7 +38,8 @@ from ..solver.pose_solver import pose_gp_optimize
 from ..utils.timing import GLOBAL_TIMER
 from . import matcher
 from .extraction import _hw_bucket, extract_pose_problem
-from .map_store import Atlas, Frame, GPObs, KeyFrame, Map, MapPoint
+from .map_store import (Atlas, Frame, GPObs, KeyFrame, Map, MapPoint,
+                        update_normals_and_depths)
 from .rig import Rig
 
 
@@ -796,7 +797,7 @@ class Tracking:
         if kf.kp_depth is None:
             return
         order = np.argsort(kf.kp_depth)
-        created = 0
+        created = []
         Twc = kf.Twb @ self.rig.Tbc[cam]
         K = self.rig.K[cam]
         for local in order:
@@ -814,13 +815,11 @@ class Tracking:
             mp.add_observation(kf, cam, g)
             kf.matches[g] = mp.id
             m.add_map_point(mp)
-            mp.update_normal_and_depth(
-                m.keyframes, self.rig.Tbc, self.rig.scale_factor,
-                self.rig.n_levels,
-            )
-            created += 1
-            if created >= max_seed:
+            created.append(mp)
+            if len(created) >= max_seed:
                 break
+        update_normals_and_depths(created, m.keyframes, self.rig.Tbc,
+                                  self.rig.scale_factor, self.rig.n_levels)
 
     # ------------------------------------------------------------------
     def _stereo_initialization(self, frame: Frame) -> bool:

@@ -4,7 +4,12 @@ utils/synthetic.make_sequence (array for array, exactly), the keyframe
 database (the same candidates), utils/io (ate_rmse to 1e-12, read_tum),
 pipeline/rig, and utils/timing. host_geom is also held against the port's
 batched torch Lie/GP functions in float64, as tests/test_lie.py holds the
-reference's against its JAX kernels."""
+reference's against its JAX kernels. The map's batched viewing-geometry
+refresh (map_store.update_normals_and_depths) is held against the
+reference's per-point MapPoint.update_normal_and_depth, and local mapping's
+single refresh per stage against a refresh after every added observation."""
+
+import copy
 
 import numpy as np
 import pytest
@@ -13,13 +18,17 @@ import torch
 from amcslam_tpu.ops import host_geom as ref_hg
 from amcslam_tpu.pipeline.keyframe_database import KeyFrameDatabase as RefKFDB
 from amcslam_tpu.pipeline.map_store import KeyFrame as RefKeyFrame
+from amcslam_tpu.pipeline.map_store import MapPoint as RefMapPoint
 from amcslam_tpu.utils import io as ref_io
 from amcslam_tpu.utils.synthetic import make_sequence as ref_make_sequence
 
 from amcslam_tpu_torch.ops import gp, lie
 from amcslam_tpu_torch.ops import host_geom as hg
+from amcslam_tpu_torch.pipeline import local_mapping
 from amcslam_tpu_torch.pipeline.keyframe_database import KeyFrameDatabase
-from amcslam_tpu_torch.pipeline.map_store import KeyFrame
+from amcslam_tpu_torch.pipeline.map_store import KeyFrame, MapPoint, update_normals_and_depths
+from amcslam_tpu_torch.pipeline.system import System
+from amcslam_tpu_torch.pipeline.tracking import TrackingConfig
 from amcslam_tpu_torch.utils import io
 from amcslam_tpu_torch.utils.synthetic import make_sequence
 from amcslam_tpu_torch.utils.timing import StageTimer, Verbose, VerbosityLevel
@@ -204,3 +213,172 @@ def test_timing_and_verbose(capsys):
     Verbose.set_level(VerbosityLevel.QUIET)
     out = capsys.readouterr().out
     assert "shown" in out and "hidden" not in out
+
+
+def _geometry_map(seed=11):
+    """Keyframes of a make_sequence drive at their true poses, keypoint
+    octaves drawn over the 8 levels, and map points at its landmarks, each
+    observed in a few cameras of several keyframes; with the cases the
+    per-point rules single out (returned by name)."""
+    frames, rig, Ts, (X, _) = make_sequence(n_frames=8, n_cams=3, n_lm=300, seed=seed)
+    rng = np.random.RandomState(seed)
+    ids = list(range(700, 700 + len(frames)))
+    kfs, rkfs = _keyframes(KeyFrame, frames, ids), _keyframes(RefKeyFrame, frames, ids)
+    for kf, rkf, T in zip(kfs, rkfs, Ts):
+        kf.Twb = rkf.Twb = T
+        kf.kp_octaves = rkf.kp_octaves = [rng.randint(0, 8, len(k)) for k in kf.keypoints]
+    table = {kf.id: kf for kf in kfs}
+    rtable = {kf.id: kf for kf in rkfs}
+    absent = 699  # observed by some points, in neither table
+    C = rig.n_cams
+    points = []
+    for j in range(60):
+        obs = {}
+        for k in rng.choice(len(kfs), rng.randint(1, 6), replace=False):
+            row = -np.ones(C, dtype=np.int64)
+            for c in rng.choice(C, rng.randint(1, C + 1), replace=False):
+                row[c] = kfs[k].kp_offsets[c] + rng.randint(len(kfs[k].keypoints[c]))
+            obs[ids[k]] = row
+        if j % 7 == 0:
+            obs[absent] = np.array([0] + [-1] * (C - 1))
+        points.append((X[j % len(X)] + rng.randn(3), obs, int(rng.choice(list(obs)))))
+    row = -np.ones(C, dtype=np.int64)
+    row[1] = kfs[2].kp_offsets[1]
+    first_absent = (X[1], {absent: np.array([0] + [-1] * (C - 1)), ids[2]: row.copy(),
+                           ids[5]: row.copy()}, absent)
+    first_unseen = (X[2], {ids[3]: row.copy(), ids[4]: row.copy()}, ids[6])
+    empty_first_row = (X[3], {ids[1]: -np.ones(C, dtype=np.int64), ids[4]: row.copy()}, ids[1])
+    only_absent = (X[4], {absent: row.copy()}, absent)
+    no_obs = (X[5], {}, ids[0])
+    Ow = (Ts[3] @ rig.Tbc[0])[:3, 3]  # a point on a camera center: one direction dropped
+    on_center = (Ow, {ids[3]: np.array([5, kfs[3].kp_offsets[1] + 2] + [-1] * (C - 2)),
+                      ids[6]: row.copy()}, ids[3])
+    bad = (X[6], {ids[2]: row.copy()}, ids[2])
+    cases = dict(first_absent=first_absent, first_unseen=first_unseen,
+                 empty_first_row=empty_first_row, only_absent=only_absent, no_obs=no_obs,
+                 on_center=on_center, bad=bad)
+    names = [None] * len(points) + list(cases)
+    points += list(cases.values())
+
+    def make(cls):
+        out = []
+        for pos, obs, first in points:
+            mp = cls(position=np.array(pos, np.float64), first_kf_id=first,
+                     observations={k: v.copy() for k, v in obs.items()})
+            mp.normal, mp.min_dist, mp.max_dist = np.full(3, 7.0), -1.0, -2.0
+            out.append(mp)
+        out[names.index("bad")].bad = True
+        return out
+
+    return rig, table, rtable, make(MapPoint), make(RefMapPoint), names
+
+
+@pytest.mark.parametrize("how", ["batch", "one_point"])
+def test_batched_refresh_equals_the_reference_per_point(how):
+    """Normal, min_dist and max_dist of every point to 1e-12 relative of the
+    reference's MapPoint.update_normal_and_depth, octaves 0-7; the points the
+    rules leave alone are left exactly as they were."""
+    rig, table, rtable, pts, rpts, names = _geometry_map()
+    args = (rig.Tbc, rig.scale_factor, rig.n_levels)
+    if how == "batch":
+        update_normals_and_depths(pts, table, *args)
+    else:
+        for mp in pts:
+            mp.update_normal_and_depth(table, *args)
+    for mp, rmp, name in zip(pts, rpts, names):
+        if name != "bad":  # the port skips a bad point; the reference does not check
+            RefMapPoint.update_normal_and_depth(rmp, rtable, *args)
+        else:
+            rmp.normal, rmp.min_dist, rmp.max_dist = np.full(3, 7.0), -1.0, -2.0
+        assert np.linalg.norm(mp.normal - rmp.normal) <= 1e-12 * np.linalg.norm(rmp.normal), name
+        assert mp.min_dist == pytest.approx(rmp.min_dist, rel=1e-12, abs=0), name
+        assert mp.max_dist == pytest.approx(rmp.max_dist, rel=1e-12, abs=0), name
+    by = dict(zip(names, pts))
+    for name in ("only_absent", "no_obs", "bad"):  # unchanged: no direction to average
+        assert (by[name].normal == 7.0).all() and by[name].min_dist == -1.0, name
+    # the reference row is all -1: a normal, but the range stays
+    assert (by["empty_first_row"].normal != 7.0).all() and by["empty_first_row"].min_dist == -1.0
+    for name in ("first_absent", "first_unseen", "on_center"):
+        assert by[name].max_dist > 0 and (by[name].normal != 7.0).any(), name
+    assert by["on_center"].min_dist == 0.0  # its reference slot sits on the center
+    levels = np.concatenate([o for kf in table.values() for o in kf.kp_octaves])
+    assert set(levels.tolist()) == set(range(8))
+
+
+def _mapping_snapshot():
+    """The map as local mapping receives the second keyframe it fuses, on a
+    short make_sequence drive: (map, keyframe, rig), deep copies."""
+    snaps = []
+    fuse = local_mapping.LocalMapping.fuse_neighbors
+
+    def keep(self, kf):
+        snaps.append(copy.deepcopy((self.map, kf, self.rig)))
+        return fuse(self, kf)
+
+    frames, rig, _, _ = make_sequence(n_frames=8, n_cams=3, n_lm=250, seed=1)
+    system = System(rig, TrackingConfig(max_frames_between_kf=3, ransac_min_match=15,
+                                        kf_translation_th=0.25),
+                    device="cpu", enable_loop_closing=False)
+    local_mapping.LocalMapping.fuse_neighbors = keep
+    try:
+        for f in frames:
+            system.track_multicamera(f)
+            if len(snaps) > 1:
+                return snaps[1]
+    finally:
+        local_mapping.LocalMapping.fuse_neighbors = fuse
+    raise AssertionError("the drive fused fewer than two keyframes")
+
+
+def _map_state(map_):
+    """Every point's position, viewing geometry and observations, and every
+    keyframe's matches, as plain values."""
+    return ({i: (mp.position.tolist(), mp.normal.tolist(), mp.min_dist, mp.max_dist,
+                 [(k, v.tolist()) for k, v in mp.observations.items()])
+             for i, mp in map_.map_points.items()},
+            {i: kf.matches.tolist() for i, kf in map_.keyframes.items()})
+
+
+def test_one_refresh_per_stage_equals_a_refresh_per_observation(monkeypatch):
+    """fuse_neighbors then the local BA's write-back, on copies of one map:
+    as the code runs them (one batched refresh at the end of each stage), and
+    with the refresh after every added observation and the write-back's
+    point-by-point loop restored. Every point and keyframe is the same after
+    each stage."""
+    snap = _mapping_snapshot()
+    runs = []
+    for old in (False, True):
+        map_, kf, rig = copy.deepcopy(snap)
+        mapper = local_mapping.LocalMapping(rig, map_, device="cpu")
+        args = (map_.keyframes, rig.Tbc, rig.scale_factor, rig.n_levels)
+        n_obs = sum(mp.n_obs() for mp in map_.map_points.values())
+        n_mp = len(map_.map_points)
+        if old:
+            add = MapPoint.add_observation
+
+            def add_and_refresh(self, kf_, cam, g):
+                add(self, kf_, cam, g)
+                self.update_normal_and_depth(*args)
+
+            monkeypatch.setattr(MapPoint, "add_observation", add_and_refresh)
+            monkeypatch.setattr(local_mapping, "update_normals_and_depths",
+                                lambda *a, **k: None)
+        mapper.fuse_neighbors(kf)
+        monkeypatch.undo()
+        assert len(map_.map_points) < n_mp  # fuse merged points
+        assert sum(mp.n_obs() for mp in map_.map_points.values()) > n_obs  # and added some
+        fused = _map_state(map_)
+        if old:
+            def point_by_point(points, *a):
+                for mp in points:
+                    if not mp.bad:
+                        mp.update_normal_and_depth(*a)
+
+            monkeypatch.setattr(local_mapping, "update_normals_and_depths", point_by_point)
+        mapper.local_ba(kf)
+        monkeypatch.undo()
+        runs.append((fused, _map_state(map_)))
+    (fused, adjusted), (old_fused, old_adjusted) = runs
+    assert fused == old_fused
+    assert adjusted == old_adjusted
+    assert adjusted != fused  # the BA moved points and refreshed them
